@@ -1,0 +1,41 @@
+"""The paper's contribution, ported: multi-device, multi-tenant GP-EI.
+
+  gp.py            zero-noise GP posterior (masked one-shot, incremental,
+                   block-diagonal engines)
+  ei.py            tau / EI / multi-tenant EI / EIrate (eqs. 3-6, Lemma 1)
+  miu.py           Maximum Incremental Uncertainty (Section 5.1)
+  tenancy.py       problem instances (Azure / DeepLearning / Matérn synthetic)
+  control_plane.py the per-event decision core (GP fold + EIrate pick),
+                   closed-world form
+  scheduler.py     event-driven MM-GP-EI + round-robin/random baselines
+  regret.py        cumulative + instantaneous global-happiness regret
+"""
+
+from .control_plane import ControlPlane, no_obs_floor, warm_start_queue  # noqa: F401
+from .ei import (  # noqa: F401
+    choose_next,
+    ei_matrix,
+    ei_total,
+    eirate_scores,
+    expected_improvement,
+    single_tenant_ei_scores,
+    tau,
+)
+from .gp import BlockIncrementalGP, IncrementalGP, make_gp, posterior_masked  # noqa: F401
+from .miu import (  # noqa: F401
+    miu_cumulative_exact,
+    miu_diag_paper_bound,
+    miu_diag_upper_bound,
+    miu_greedy,
+    miu_s_exact,
+)
+from .regret import RegretCurves, final_regret, regret_curves, speedup_to_threshold  # noqa: F401
+from .scheduler import POLICIES, FailureEvent, SimResult, TrialRecord, simulate  # noqa: F401
+from .tenancy import (  # noqa: F401
+    Problem,
+    azure_problem,
+    deeplearning_problem,
+    matern52,
+    synthetic_matern_problem,
+    synthetic_matern_z,
+)

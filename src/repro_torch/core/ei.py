@@ -1,0 +1,61 @@
+"""Expected improvement, multi-tenant EI aggregation, and EIrate.
+
+Implements Lemma 1 and equations (3)-(6) of the paper:
+
+  tau(u)        = u * Phi(u) + phi(u)
+  EI_{i,t}(x)   = sigma_t(x) * tau((mu_t(x) - z(x_i*(t))) / sigma_t(x))
+  EI_t(x)       = sum_i 1(x in L_i) * EI_{i,t}(x)
+  EIrate_t(x)   = EI_t(x) / c(x)
+  x_next        = argmax_{x not selected} EIrate_t(x)
+
+Plain functions on tensors; ``membership`` is an (N, n) bool matrix (tenant
+i "has" model x).  ``selected`` marks models that are observed *or
+currently running* — both are excluded from the argmax.  The arithmetic
+(Phi with an erfc tail, subnormals flushed) is the EIrate kernel's
+(``kernels/csrc/ei_score.cu``, plain version in ``kernels/ref.py``), whose
+entry point ``kernels.ops.eirate`` is what the decision core calls.  These
+functions mask with -inf; the kernel path masks with -1e30.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.ref import expected_improvement, ftz, tau  # noqa: F401
+
+NEG_INF = float("-inf")
+
+
+def ei_matrix(mu, sigma, best_per_user, membership):
+    """(N, n) matrix of 1(x in L_i) * EI_{i,t}(x)."""
+    ei = expected_improvement(mu[None, :], sigma[None, :], best_per_user[:, None])
+    return torch.where(membership, ei, torch.zeros_like(ei))
+
+
+def ei_total(mu, sigma, best_per_user, membership):
+    """(n,) total EI over tenants — eq. (4)."""
+    return ei_matrix(mu, sigma, best_per_user, membership).sum(dim=0)
+
+
+def eirate_scores(mu, sigma, best_per_user, membership, cost, selected):
+    """(n,) EIrate with selected models masked to -inf — eqs. (5)-(6)."""
+    scores = ftz(ei_total(mu, sigma, best_per_user, membership) / cost)
+    return torch.where(selected, torch.full_like(scores, NEG_INF), scores)
+
+
+def choose_next(mu, sigma, best_per_user, membership, cost, selected):
+    """Returns (argmax index, its EIrate score) as 0-d tensors; the argmax
+    takes the first of equal maxima, like ``jnp.argmax``."""
+    scores = eirate_scores(mu, sigma, best_per_user, membership, cost, selected)
+    idx = torch.argmax(scores)
+    return idx, scores[idx]
+
+
+def single_tenant_ei_scores(mu, sigma, best, member_row, selected):
+    """Per-tenant plain GP-EI scores (baselines: each user runs own GP-EI).
+
+    ``best`` is the scalar best-observed value for this tenant; models outside
+    the tenant's candidate set or already selected score -inf.
+    """
+    ei = expected_improvement(mu, sigma, best)
+    return torch.where(member_row & ~selected, ei, torch.full_like(ei, NEG_INF))

@@ -1,0 +1,24 @@
+"""Public entry points of the port's kernels.
+
+Dispatch goes by the tensors' device and nothing else: a CPU tensor takes
+the plain PyTorch version (``ref``), a CUDA tensor the hand-written kernel,
+which launches or raises -- there is no fallback between them.
+"""
+
+from __future__ import annotations
+
+from . import ei_score, gp_readout as _gp_readout, ref
+
+
+def eirate(mu, sigma, best, membership, cost, selected):
+    """(n,) EIrate scores, -1e30 at selected models."""
+    if mu.device.type == "cpu":
+        return ref.eirate_ref(mu, sigma, best, membership, cost, selected)
+    return ei_score.eirate(mu, sigma, best, membership, cost, selected)
+
+
+def gp_readout(W, alpha, mu0, k_diag, *, emit_sd=False):
+    """(mu, var) over the k rows of W (k, n), or (mu, sd) with ``emit_sd``."""
+    if W.device.type == "cpu":
+        return ref.gp_readout_ref(W, alpha, mu0, k_diag, emit_sd=emit_sd)
+    return _gp_readout.gp_readout(W, alpha, mu0, k_diag, emit_sd=emit_sd)

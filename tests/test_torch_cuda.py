@@ -1,0 +1,90 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels have
+no CPU mode).  The file imports neither JAX nor the JAX package, so it runs
+on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernels do the plain versions' arithmetic step for step
+(no multiply-add contraction, sums in ascending order, elementary functions
+taken in double and rounded once), so both are held bit-equal.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import simulate, synthetic_matern_problem  # noqa: E402
+from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ei_inputs(rng, n, N, device):
+    mu = rng.standard_normal(n).astype(np.float32)
+    sg = np.abs(rng.standard_normal(n)).astype(np.float32)
+    sg[: n // 4] = 0.0
+    best = rng.standard_normal(N).astype(np.float32)
+    mem = rng.random((N, n)) < 0.4
+    cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
+    sel = rng.random(n) < 0.25
+    return [torch.from_numpy(a).to(device) for a in (mu, sg, best, mem, cost, sel)]
+
+
+@pytest.mark.parametrize("n,N", [(2500, 50), (513, 100), (17, 3)])
+def test_eirate_kernel_matches_plain(cuda, rng, n, N):
+    args = _ei_inputs(rng, n, N, cuda)
+    before = ei_score.launches
+    got = ops.eirate(*args)
+    torch.cuda.synchronize()
+    assert ei_score.launches == before + 1
+    torch.testing.assert_close(got, ref.eirate_ref(*args), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("k,n", [(0, 50), (50, 50), (512, 2500)])
+def test_gp_readout_kernel_matches_plain(cuda, rng, k, n):
+    W = torch.from_numpy((rng.standard_normal((k, n)) * 0.3).astype(np.float32)).to(cuda)
+    alpha = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(cuda)
+    mu0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    kd = (W * W).sum(0) + 1.0
+    before = gp_readout.launches
+    for emit_sd in (False, True):
+        got = ops.gp_readout(W, alpha, mu0, kd, emit_sd=emit_sd)
+        want = ref.gp_readout_ref(W, alpha, mu0, kd, emit_sd=emit_sd)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+    assert gp_readout.launches == before + 2
+
+
+def test_kernel_wrappers_refuse_bad_inputs(cuda, rng):
+    args = _ei_inputs(rng, 64, 4, cuda)
+    with pytest.raises(TypeError):
+        ops.eirate(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        ops.eirate(*args[:3], args[3][:, :32], *args[4:])
+    W = torch.zeros((4, 64), device=cuda)
+    with pytest.raises(ValueError):
+        ops.gp_readout(W.t(), torch.zeros(64, device=cuda),
+                       torch.zeros(4, device=cuda), torch.zeros(4, device=cuda))
+
+
+@pytest.mark.parametrize("policy", ["mdmt", "round_robin", "random"])
+def test_episode_on_card_equals_cpu(cuda, policy):
+    prob = synthetic_matern_problem(num_users=6, num_models_per_user=12, seed=3)
+    e0, r0 = ei_score.launches, gp_readout.launches
+    gpu = simulate(prob, policy, num_devices=3, seed=0, device=cuda)
+    assert gp_readout.launches > r0
+    if policy == "mdmt":
+        assert ei_score.launches > e0
+    cpu = simulate(prob, policy, num_devices=3, seed=0, device="cpu")
+    assert gpu.trials == cpu.trials

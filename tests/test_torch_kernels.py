@@ -1,0 +1,170 @@
+"""The port's kernel entry points against the JAX package's kernels.
+
+On the CPU the port's ``ops`` take the plain PyTorch versions; each is held
+against the Pallas kernel run in interpret mode and against its jnp
+reference, on the shape sweeps of ``test_kernels.py``.  The tolerance is
+that file's (1e-4 for EIrate, 2e-4 for the readout): the Pallas kernel
+takes Phi from erf, the port (like the reference's decision path) from
+ndtr, and the two sum in different orders.  The CUDA kernels are held
+against the plain versions on the card in ``test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch import _build  # noqa: E402
+from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def cpu_path_never_launches():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    before = (ei_score.launches, gp_readout.launches)
+    yield
+    assert (ei_score.launches, gp_readout.launches) == before
+
+
+def _ei_inputs(rng, n, N):
+    mu = rng.standard_normal(n).astype(np.float32)
+    sg = np.abs(rng.standard_normal(n)).astype(np.float32)
+    sg[: n // 4] = 0.0                                  # degenerate sigmas
+    best = rng.standard_normal(N).astype(np.float32)
+    mem = rng.random((N, n)) < 0.4
+    cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
+    sel = rng.random(n) < 0.25
+    return mu, sg, best, mem, cost, sel
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# --- EIrate -------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,N,bm,bu", [
+    (64, 8, 64, 8), (200, 33, 64, 16), (513, 100, 128, 64), (17, 3, 256, 256),
+])
+def test_eirate_plain_matches_pallas_and_ref(rng, n, N, bm, bu):
+    arrays = _ei_inputs(rng, n, N)
+    got = ops.eirate(*_t(*arrays)).numpy()
+    j = [jnp.asarray(a) for a in arrays]
+    pallas = jops.eirate(*j, block_models=bm, block_users=bu, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jref.eirate_ref(*j)),
+                               atol=1e-4, rtol=1e-4)
+    assert (got[arrays[5]] == -1e30).all()
+
+
+def test_eirate_sigma_zero_is_exact(rng):
+    """sigma == 0 takes max(mu - best, 0), summed over member tenants in
+    ascending order: bit-equal to the same float32 sum in numpy."""
+    n, N = 40, 6
+    mu, _, best, mem, cost, _ = _ei_inputs(rng, n, N)
+    sg = np.zeros(n, np.float32)
+    sel = np.zeros(n, bool)
+    got = ops.eirate(*_t(mu, sg, best, mem, cost, sel)).numpy()
+    total = np.zeros(n, np.float32)
+    for i in range(N):
+        total = total + np.where(mem[i], np.maximum(mu - best[i], 0), 0).astype(np.float32)
+    np.testing.assert_array_equal(got, total / cost)
+
+
+def test_eirate_ties_are_bit_equal():
+    """Equal inputs give bit-equal scores, so the argmax is the first index."""
+    n, N = 48, 3
+    mu, sg, best = np.zeros(n, np.float32), np.ones(n, np.float32), np.zeros(N, np.float32)
+    mem, cost, sel = np.ones((N, n), bool), np.ones(n, np.float32), np.zeros(n, bool)
+    got = ops.eirate(*_t(mu, sg, best, mem, cost, sel))
+    assert (got == got[0]).all()
+    assert int(torch.argmax(got)) == 0
+
+
+def test_eirate_deep_tail_underflows_to_zero():
+    """A candidate far below every incumbent scores exactly 0, as the
+    reference (XLA flushes subnormals) does — not a subnormal that would
+    outrank an equal neighbour in the argmax."""
+    mu = np.array([0.0, 0.0, 0.0], np.float32)
+    sg = np.array([0.0370, 0.0371, 1.0], np.float32)
+    best = np.array([0.5], np.float32)    # u ~ -13.5: phi(u), Phi(u) subnormal
+    mem, cost, sel = np.ones((1, 3), bool), np.ones(3, np.float32), np.zeros(3, bool)
+    u = torch.tensor(-13.5)
+    assert 0 < float(torch.exp(-u * u / 2)) < ref.FLT_MIN   # subnormal unflushed
+    got = ops.eirate(*_t(mu, sg, best, mem, cost, sel)).numpy()
+    assert got[0] == 0.0 and got[1] == 0.0 and got[2] > 0
+    from repro.core.ei import eirate_scores
+    want = np.asarray(eirate_scores(*[jnp.asarray(a) for a in (mu, sg, best, mem, cost, sel)]))
+    np.testing.assert_array_equal(got, want)
+
+
+# --- GP readout ----------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n,bk,bn", [
+    (32, 64, 32, 64), (100, 257, 64, 128), (7, 1024, 512, 512), (512, 33, 128, 32),
+    (0, 50, 512, 512),      # a block with no observation yet
+])
+def test_gp_readout_plain_matches_pallas_and_ref(rng, k, n, bk, bn):
+    W = (rng.standard_normal((k, n)) * 0.3).astype(np.float32)
+    alpha = rng.standard_normal(k).astype(np.float32)
+    mu0 = rng.standard_normal(n).astype(np.float32)
+    kd = ((W * W).sum(0) + np.abs(rng.standard_normal(n))).astype(np.float32)
+    m1, v1 = (x.numpy() for x in ops.gp_readout(*_t(W, alpha, mu0, kd)))
+    m2, s2 = (x.numpy() for x in ops.gp_readout(*_t(W, alpha, mu0, kd), emit_sd=True))
+    np.testing.assert_array_equal(m1, m2)
+    np.testing.assert_array_equal(s2, np.sqrt(v1))     # correctly rounded
+    if k == 0:
+        np.testing.assert_array_equal(m1, mu0)
+        np.testing.assert_array_equal(v1, kd)
+        return
+    j = [jnp.asarray(a) for a in (W, alpha, mu0, kd)]
+    mp, vp = jops.gp_readout(*j, block_n=bn, block_k=bk, interpret=True)
+    mr, vr = jref.gp_readout_ref(*j)
+    for want_mu, want_var in ((mp, vp), (mr, vr)):
+        np.testing.assert_allclose(m1, np.asarray(want_mu), atol=2e-4, rtol=2e-4)
+        np.testing.assert_allclose(v1, np.asarray(want_var), atol=2e-4, rtol=2e-4)
+    _, sp = jops.gp_readout(*j, block_n=bn, block_k=bk, interpret=True, emit_sd=True)
+    np.testing.assert_allclose(s2, np.asarray(sp), atol=2e-4, rtol=2e-4)
+
+
+def test_gp_readout_variance_sums_rows_in_order(rng):
+    """The sum of squares runs row by row in ascending order with separate
+    rounding — the order of the engine's running diag_acc — so the
+    variance is bit-equal to K_diag minus that running sum."""
+    k, n = 37, 90
+    W = (rng.standard_normal((k, n)) * 0.3).astype(np.float32)
+    kd = ((W * W).sum(0) + 1.0).astype(np.float32)
+    acc = np.zeros(n, np.float32)
+    for r in range(k):
+        acc = acc + W[r] * W[r]
+    _, var = ops.gp_readout(*_t(W, np.zeros(k, np.float32), np.zeros(n, np.float32), kd))
+    np.testing.assert_array_equal(var.numpy(), np.maximum(kd - acc, 0))
+
+
+# --- no fallback ---------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
+    """A tensor that is not on the CPU goes to the kernel wrapper, which
+    launches or raises — it never drops to the plain version."""
+    args = [t.to("meta") for t in _t(*_ei_inputs(rng, 16, 2))]
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.eirate(*args)
+    W = torch.zeros((3, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.gp_readout(W, torch.zeros(3, device="meta"),
+                       torch.zeros(16, device="meta"), torch.zeros(16, device="meta"))
+
+
+def test_build_is_keyed_on_the_source():
+    """Each source builds into its own library under build/repro_torch/,
+    named by a hash of source and flags (a second run reuses it)."""
+    assert _build.sources() == ["ei_score", "gp_readout"]
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.parent.parts[-2:] == ("build", "repro_torch")
+        assert path.name.startswith(f"lib{name}-") and path == _build.library_path(name)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
