@@ -17,6 +17,21 @@ Run from the root of a checkout on a machine with one CUDA card and
                  and every decision launched the EIrate kernel once
   episode_dense  the same on a 1 x 2,048 prior, which takes the dense GP engine
   baselines      round_robin and random on the Azure workload, card vs CPU
+  readout_decide the sharded plane's readout -> score -> pick at service size
+                 (k_obs 1,024, n 100,000, N 1,000) at S = 1 and S = 4 shards
+                 on the card, both score routes, against the unsharded
+                 readout -> EIrate -> first argmax
+  churn_sharded  the open-world plane through a seeded tenant trace (100
+                 tenants of 50 models, four simulated training devices, a
+                 retire + arrival + compact(max_moves=4) every 10 decisions,
+                 reshard 4 -> 2 -> 4, 1,000 decisions), run as (a) sharded,
+                 route eirate_topk, S = 4 logical shards on the card; (b) the
+                 same with route eirate; (c) scorer ops; (d) (a) at S = 1;
+                 (e) ops at S = 1; then (a) on the CPU with the plain
+                 versions: (a) = (b) = (c) = CPU and (d) = (e) picks, and
+                 eirate_topk launched once per shard per decision in (a);
+                 then the top-k kernel held against its plain version on the
+                 inputs run (a) gave it
 
 Then a line listing each kernel, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -25,6 +40,7 @@ Then a line listing each kernel, the card's name and power limit as
 
 from __future__ import annotations
 
+import heapq
 import json
 import subprocess
 import sys
@@ -45,6 +61,17 @@ EI_OPS = 15
 
 FIG5_HORIZON = 600.0           # before the pool runs dry: every decision scores
 DENSE_HORIZON = 50.0           # about 200 decisions at M = 4, unit costs
+TOPK = 4                       # candidates per shard (the planes' shard_topk)
+READOUT_SHAPE = (1024, 100_000, 1000)   # readout_decide: k_obs, n, N
+
+# churn_sharded: the tenant trace
+CHURN_TENANTS = 100            # live at the start, each a Fig-5 block
+CHURN_MODELS = 50              # models per tenant
+CHURN_DEVICES = 4              # simulated training devices
+CHURN_DECISIONS = 1000
+CHURN_EVERY = 10               # decisions between retire + arrive + compact
+CHURN_RESHARD = {400: 2, 600: 4}   # decision count -> new shard count
+CHURN_CPU_DECISIONS = 1000     # the CPU twin's run (all of it, or a prefix)
 
 
 def emit(obj) -> None:
@@ -84,7 +111,10 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 
 # ---- kernels ------------------------------------------------------------------
 
-def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
+def ei_inputs(N, n, layout, rng, dev):
+    """EIrate inputs on the card: disjoint membership (one owner a model,
+    the paper's workloads), dense random membership (40%), or the all-equal
+    tie case; sigma = 0 and selected entries mixed in."""
     mu = rng.standard_normal(n).astype(np.float32)
     sg = np.abs(rng.standard_normal(n)).astype(np.float32)
     sg[rng.random(n) < 0.125] = 0.0                     # sigma = 0 entries
@@ -99,7 +129,25 @@ def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
     else:                               # all-equal tie case
         mu[:], sg[:], best[:], cost[:], sel[:] = 0.0, 1.0, 0.0, 1.0, False
         mem = np.ones((N, n), bool)
-    args = [torch.from_numpy(a).to(dev) for a in (mu, sg, best, mem, cost, sel)]
+    return [torch.from_numpy(a).to(dev) for a in (mu, sg, best, mem, cost, sel)]
+
+
+def ei_bound(args, extra_ops=0, out_bytes=None):
+    """The least time for an EIrate pass over these inputs: each input read
+    once (membership N*n bytes, mu/sigma/cost 12n, selected n, best 4N) and
+    each output written once (default: the (n,) float32 scores); EI_OPS per
+    member pair with sigma > 0, 2 per pair at sigma = 0, 2 per column."""
+    mu, sg, best, mem, _, _ = args
+    N, n = mem.shape
+    pairs = int(mem.sum())
+    pairs_pos = int(mem[:, sg > 0].sum())
+    nbytes = N * n + 13 * n + 4 * N + (4 * n if out_bytes is None else out_bytes)
+    ops = pairs_pos * EI_OPS + (pairs - pairs_pos) * 2 + n * 2 + extra_ops
+    return (pairs,) + bound_ms(nbytes, ops)
+
+
+def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
+    args = ei_inputs(N, n, layout, rng, dev)
     got = ei_score.eirate(*args)
     want = ref.eirate_ref(*args)
     torch.cuda.synchronize()
@@ -111,14 +159,50 @@ def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
     iters = 200 if n * N <= 10**6 else 20
     ms = cuda_ms(lambda: ei_score.eirate(*args), iters)
     plain_ms = cuda_ms(lambda: ref.eirate_ref(*args), max(iters // 10, 3))
-    pairs = mem.sum()
-    pairs_pos = mem[:, sg > 0].sum()
-    nbytes = N * n + n * (4 * 4 + 1) + N * 4
-    ops = pairs_pos * EI_OPS + (pairs - pairs_pos) * 2 + n * 2
-    b_ms, b_by = bound_ms(nbytes, ops)
-    return dict(case=name, N=N, n=n, membership=layout, member_pairs=int(pairs),
+    pairs, b_ms, b_by = ei_bound(args)
+    return dict(case=name, N=N, n=n, membership=layout, member_pairs=pairs,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def topk_check(name, args, k, ei_score, ref, timed=True):
+    """The top-k kernel against its plain version on the same card inputs:
+    values bit-equal and ids equal, every entry; with ``timed``, CUDA-event
+    times of both and the bound (the EIrate pass plus kb rounds of compares
+    over the padded columns, 8 bytes written per candidate)."""
+    got_v, got_i = ei_score.eirate_topk(*args, k=k)
+    want_v, want_i = ref.eirate_topk_ref(*args, k=k)
+    torch.cuda.synchronize()
+    err = float((got_v - want_v).abs().max())
+    check(err == 0.0 and torch.equal(got_i, want_i),
+          f"eirate_topk {name}: kernel {got_v.tolist()} {got_i.tolist()} vs "
+          f"plain {want_v.tolist()} {want_i.tolist()}")
+    N, n = args[3].shape
+    rec = dict(case=name, N=N, n=n, k=k, max_abs_err=err,
+               ids=got_i.tolist(), ids_equal=True)
+    if not timed:
+        return rec
+    bn = min(ref.BLOCK_MODELS, max(n, 1))
+    kb = min(k, bn)
+    padded = -(-n // bn) * bn
+    pairs, b_ms, b_by = ei_bound(args, extra_ops=kb * padded, out_bytes=8 * k)
+    iters = 200 if n * N <= 10**6 else 20
+    rec.update(member_pairs=pairs,
+               ms=cuda_ms(lambda: ei_score.eirate_topk(*args, k=k), iters),
+               plain_ms=cuda_ms(lambda: ref.eirate_topk_ref(*args, k=k),
+                                max(iters // 10, 3)),
+               bound_ms=b_ms, bound_by=b_by)
+    return rec
+
+
+def topk_case(name, N, n, layout, k, rng, dev, ei_score, ref):
+    args = ei_inputs(N, n, layout, rng, dev)
+    rec = topk_check(name, args, k, ei_score, ref)
+    rec["membership"] = layout
+    if layout == "tie":
+        check(rec["ids"] == list(range(k)),
+              f"eirate_topk tie case: ids {rec['ids']}, expected 0..{k - 1}")
+    return rec
 
 
 def readout_case(k, n, emit_sd, rng, dev, gp_readout, ref):
@@ -151,14 +235,14 @@ def episode(name, problem, policy, M, horizon, counters, simulate, regret_curves
     """One episode on the card with the launch counts of exactly that run,
     then the same episode on the CPU (plain versions); trial sequences must
     be equal."""
-    for mod in counters.values():
-        mod.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
     gpu = simulate(problem, policy, num_devices=M, seed=0, horizon=horizon,
                    device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in counters.items()}
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     t0 = time.perf_counter()
     cpu = simulate(problem, policy, num_devices=M, seed=0, horizon=horizon,
                    device="cpu")
@@ -180,6 +264,236 @@ def episode(name, problem, policy, M, horizon, counters, simulate, regret_curves
         trials_equal_cpu=True)
 
 
+# ---- the sharded plane ------------------------------------------------------------
+
+def host_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call on the host clock, each call ending in a
+    synchronize, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
+    """readout_decide_topk at service size against the unsharded pipeline:
+    gp_readout over all of W, EIrate, first argmax (and the flat top-k)."""
+    k_obs, n, N = READOUT_SHAPE
+    W = torch.from_numpy((rng.standard_normal((k_obs, n)) * 0.03)
+                         .astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(rng.standard_normal(k_obs).astype(np.float32)).to(dev)
+    mu0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    kd = (W * W).sum(0) + torch.rand(n, device=dev)
+    member = np.zeros((N, n), bool)
+    member[np.arange(n) * N // n, np.arange(n)] = True      # 100 models a tenant
+    cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
+    best = torch.from_numpy(rng.normal(0.5, 0.5, N).astype(np.float32)).to(dev)
+    sel = torch.from_numpy(rng.random(n) < 0.25).to(dev)
+    mem_t = torch.from_numpy(member).to(dev)
+    cost_t = torch.from_numpy(cost).to(dev)
+
+    def unsharded():
+        mu, sd = ops.gp_readout(W, alpha, mu0, kd, emit_sd=True)
+        return ops.eirate(mu, sd, best, mem_t, cost_t, sel)
+
+    scores = unsharded()
+    want = int(torch.argmax(scores))
+    want_v, want_i = ref.topk_first(scores, TOPK)
+    runs = []
+    for S in (1, 4):
+        for kernel in ("eirate_topk", "eirate"):
+            sc = ShardedScorer(S, topk=TOPK, kernel=kernel, device=dev)
+            sc.refresh(member, cost)
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            v, g = sc.readout_decide_topk(W, alpha, mu0, kd, best, sel)
+            torch.cuda.synchronize()
+            launches = {name: getattr(mod, attr)
+                        for name, (mod, attr) in counters.items()}
+            check(int(g[0]) == want and float(v[0]) == float(scores[want]),
+                  f"readout_decide S={S} {kernel}: pick ({int(g[0])}, "
+                  f"{float(v[0])}) vs unsharded ({want}, {float(scores[want])})")
+            check(torch.equal(v, want_v) and torch.equal(g, want_i.long()),
+                  f"readout_decide S={S} {kernel}: top-{TOPK} differs")
+            check(launches["gp_readout"] == S
+                  and launches[kernel] == S
+                  and sum(launches.values()) == 2 * S,
+                  f"readout_decide S={S} {kernel}: launches {launches}")
+            runs.append(dict(num_shards=S, route=kernel, pick=int(g[0]),
+                             value=float(v[0]), ids=g.tolist(),
+                             launches=launches,
+                             ms=host_ms(lambda: sc.readout_decide_topk(
+                                 W, alpha, mu0, kd, best, sel), 10)))
+    return dict(phase="readout_decide", k_obs=k_obs, n=n, N=N, k=TOPK,
+                unsharded_pick=want, unsharded_ms=host_ms(
+                    lambda: int(torch.argmax(unsharded())), 10),
+                runs=runs, equal_unsharded=True)
+
+
+def churn_trace(plane, decisions, seed, block_chol, draw, counters,
+                sync=None):
+    """Drive an open-world plane through the seeded tenant trace.
+
+    ``CHURN_TENANTS`` tenants arrive first, each a Matérn-5/2 block of
+    ``CHURN_MODELS`` models (the Fig-5 prior, unit costs) with its own
+    ground-truth draw from ``seed``'s generator.  ``CHURN_DEVICES`` devices
+    take the picks; a trial lasts its cost and then folds its ground-truth
+    z.  Every ``CHURN_EVERY`` decisions the oldest tenant with no trial in
+    flight retires, a new tenant arrives and ``compact(max_moves=4)`` runs;
+    ``CHURN_RESHARD`` reshards mid-trace.  Returns the (tenant, model) picks
+    in order and what the phase prints."""
+    rng = np.random.default_rng(seed)
+    K, L = block_chol(CHURN_MODELS, 0.2, 0.04)
+    mu0, cost = np.zeros(CHURN_MODELS), np.ones(CHURN_MODELS)
+    truth: dict[int, np.ndarray] = {}       # tenant key -> ground truth
+    tid_of: dict[int, int] = {}             # live tenant key -> tenant slot
+    key_of: dict[int, int] = {}             # tenant slot -> live tenant key
+
+    def arrive():
+        key = len(truth)
+        truth[key] = draw(rng, L)
+        h = plane.add_tenant(K, mu0, cost)
+        tid_of[key], key_of[h.tenant_id] = h.tenant_id, key
+
+    for _ in range(CHURN_TENANTS):
+        arrive()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    free = list(range(CHURN_DEVICES))
+    pending: list[tuple] = []               # (end, seq, device, model id)
+    picks, decide_s, imbalance = [], [], []
+    high_water, now, seq, shard_decisions = plane.num_models, 0.0, 0, 0
+    while len(picks) < decisions:
+        while free and len(picks) < decisions:
+            device = free.pop(0)
+            shards = plane._layout.num_shards
+            t0 = time.perf_counter()
+            pick = plane.choose_mdmt()
+            if sync is not None:
+                sync()
+            decide_s.append(time.perf_counter() - t0)
+            check(pick is not None, "churn_sharded: the pool ran dry")
+            g = pick[0]
+            tid = int(np.nonzero(plane.membership[:, g])[0][0])
+            key = key_of[tid]
+            picks.append((key, g - plane._layout.blocks[tid].start))
+            shard_decisions += shards
+            plane.record_start(g)
+            seq += 1
+            heapq.heappush(pending, (now + float(plane.cost[g]), seq, device, g))
+            if len(picks) % CHURN_EVERY == 0:
+                busy = {key_of[int(np.nonzero(plane.membership[:, m])[0][0])]
+                        for *_, m in pending}
+                oldest = next(k for k in sorted(tid_of) if k not in busy)
+                plane.retire_tenant(tid_of[oldest])
+                del key_of[tid_of.pop(oldest)]
+                arrive()
+                plane.compact(max_moves=4)
+                imbalance.append(plane._layout.imbalance())
+                high_water = max(high_water, plane.num_models)
+            if len(picks) in CHURN_RESHARD:
+                remap = plane.reshard(CHURN_RESHARD[len(picks)])
+                pending = [(e, q, d, remap[m]) for e, q, d, m in pending]
+                heapq.heapify(pending)
+        end, _, device, g = heapq.heappop(pending)
+        now = end
+        tid = int(np.nonzero(plane.membership[:, g])[0][0])
+        local = g - plane._layout.blocks[tid].start
+        plane.record_observation(g, float(truth[key_of[tid]][local]))
+        free.append(device)
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    return picks, dict(
+        decisions=len(picks), mean_decision_ms=float(np.mean(decide_s)) * 1e3,
+        live_models_high_water=high_water, capacity=plane.capacity,
+        shard_capacity=plane._layout.shard_capacity,
+        imbalance_after_compaction_last=imbalance[-1],
+        imbalance_after_compaction_max=max(imbalance),
+        tenants_admitted=len(truth), shard_decisions=shard_decisions,
+        launches=launches)
+
+
+def churn_phase(seed, dev, ControlPlane, block_chol, draw, counters, ei_score,
+                ref):
+    """Runs (a)-(e) on the card and (a) on the CPU; equal picks."""
+    sync = torch.cuda.synchronize
+
+    def plane(scorer, S, kernel="eirate_topk", device=dev):
+        return ControlPlane(np.random.default_rng(seed), scorer=scorer,
+                            num_shards=S, shard_topk=TOPK, score_kernel=kernel,
+                            model_capacity=1024, tenant_capacity=16,
+                            device=device)
+
+    runs, picks = {}, {}
+    # (e) is (d)'s twin: one shard is another index space from the start
+    # (fresh tenants tie exactly, and the lowest global id wins), so (d) is
+    # held to the ops plane at the same shard counts, all the way through
+    specs = (("a", "sharded", 4, "eirate_topk"), ("b", "sharded", 4, "eirate"),
+             ("c", "ops", 4, "eirate_topk"), ("d", "sharded", 1, "eirate_topk"),
+             ("e", "ops", 1, "eirate_topk"))
+    for name, scorer, S, kernel in specs:
+        cp = plane(scorer, S, kernel)
+        t0 = time.perf_counter()
+        picks[name], runs[name] = churn_trace(cp, CHURN_DECISIONS, seed,
+                                              block_chol, draw, counters, sync)
+        runs[name].update(scorer=scorer, num_shards=S, route=kernel,
+                          device=str(dev), wall_s=time.perf_counter() - t0)
+        if name == "a":
+            plane_a = cp
+    t0 = time.perf_counter()
+    picks["cpu"], runs["cpu"] = churn_trace(
+        plane("sharded", 4, device="cpu"), CHURN_CPU_DECISIONS, seed,
+        block_chol, draw, counters)
+    runs["cpu"].update(scorer="sharded", num_shards=4, route="eirate_topk",
+                       device="cpu", wall_s=time.perf_counter() - t0)
+    check(picks["b"] == picks["a"], "churn_sharded: route eirate picked differently")
+    check(picks["c"] == picks["a"], "churn_sharded: scorer ops picked differently")
+    check(picks["cpu"] == picks["a"][:len(picks["cpu"])],
+          "churn_sharded: the CPU twin picked differently")
+    check(picks["d"] == picks["e"],
+          "churn_sharded: sharded at S = 1 picked differently from ops at S = 1")
+    d_prefix = next((i for i, (x, y) in enumerate(zip(picks["d"], picks["a"]))
+                     if x != y), len(picks["d"]))
+    la = runs["a"]["launches"]
+    check(la["eirate_topk"] == runs["a"]["shard_decisions"] and la["eirate"] == 0
+          and la["gp_readout"] > 0,
+          f"churn_sharded (a): {la} for {runs['a']['shard_decisions']} "
+          f"shard-decisions")
+    check(runs["b"]["launches"]["eirate"] == runs["b"]["shard_decisions"],
+          f"churn_sharded (b): launches {runs['b']['launches']}")
+    for name in "ce":
+        check(runs[name]["launches"]["eirate"] == CHURN_DECISIONS
+              and runs[name]["launches"]["eirate_topk"] == 0,
+              f"churn_sharded ({name}): launches {runs[name]['launches']}")
+    check(runs["d"]["launches"]["eirate_topk"] == runs["d"]["shard_decisions"],
+          f"churn_sharded (d): launches {runs['d']['launches']}")
+    check(all(v == 0 for v in runs["cpu"]["launches"].values()),
+          "churn_sharded: the CPU twin launched a kernel")
+    # the top-k kernel on the very inputs run (a) gives each shard
+    sc = plane_a._sharded
+    mu, var = plane_a.gp.posterior_host()
+    mus = sc._per_shard(sc._pad(mu, 0.0, np.float32))
+    sds = sc._per_shard(sc._pad(np.sqrt(var), 0.0, np.float32))
+    sels = sc._per_shard(sc._pad(plane_a.selected, True, bool))
+    bests = sc._replicated(plane_a._best_t)
+    shard_cases = [topk_check(f"churn_shard{s}", [mus[s], sds[s], bests[s],
+                                                  sc._member[s], sc._cost[s],
+                                                  sels[s]], TOPK, ei_score,
+                              ref, timed=(s == 0))
+                   for s in range(sc.num_shards)]
+    return runs, dict(
+        phase="churn_sharded", seed=seed, tenants=CHURN_TENANTS,
+        models_per_tenant=CHURN_MODELS, devices=CHURN_DEVICES,
+        churn_every=CHURN_EVERY, reshard_at=CHURN_RESHARD,
+        cpu_decisions=len(picks["cpu"]),
+        picks_equal={"b_a": True, "c_a": True, "cpu_a": len(picks["cpu"]),
+                     "d_e": True},
+        d_a_common_prefix=d_prefix,
+        runs=runs, main_path_inputs=shard_cases)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -190,9 +504,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch import _build
-    from repro_torch.core import (azure_problem, regret_curves, simulate,
-                                  synthetic_matern_problem)
-    from repro_torch.kernels import ei_score, gp_readout, ref
+    from repro_torch.core import (ControlPlane, azure_problem, regret_curves,
+                                  simulate, synthetic_matern_problem)
+    from repro_torch.core.tenancy import _matern_block_chol, _matern_draw
+    from repro_torch.kernels import ei_score, gp_readout, ops, ref
+    from repro_torch.shardgp import ShardedScorer
 
     dev = torch.device("cuda")
 
@@ -215,14 +531,25 @@ def main() -> int:
     ro_cases = [readout_case(k, n, sd, rng, dev, gp_readout, ref)
                 for k, n in ((0, 50), (50, 50), (512, 2500), (1024, 100_000))
                 for sd in (False, True)]
+    topk_cases = [topk_case(*c, TOPK, rng, dev, ei_score, ref) for c in (
+        ("paper_disjoint", 50, 2500, "disjoint"),
+        ("paper_dense", 50, 2500, "dense"),
+        ("paper_tie", 50, 2500, "tie"),
+        ("service_disjoint", 1000, 100_000, "disjoint"),
+        ("service_dense", 1000, 100_000, "dense"),
+        ("k_gt_n", 50, 3, "dense"))]
     emit(dict(phase="kernels", tolerance=0.0,
               tolerance_reason="each kernel does its plain version's arithmetic "
               "step for step: no multiply-add contraction (-fmad=false), sums in "
-              "ascending order, erf/erfc/exp in double rounded once, IEEE sqrt; "
-              "so both are held bit-equal",
-              eirate=ei_cases, gp_readout=ro_cases))
+              "ascending order, erf/erfc/exp in double rounded once, IEEE sqrt, "
+              "the same per-column EIrate code in both EIrate kernels, the same "
+              "lowest-index rule in every top-k; so both are held bit-equal, "
+              "ids included",
+              eirate=ei_cases, gp_readout=ro_cases, eirate_topk=topk_cases))
 
-    counters = {"eirate": ei_score, "gp_readout": gp_readout}
+    counters = {"eirate": (ei_score, "launches"),
+                "eirate_topk": (ei_score, "topk_launches"),
+                "gp_readout": (gp_readout, "launches")}
     fig5 = synthetic_matern_problem(50, 50, seed=0)
     res, rec = episode("episode_fig5", fig5, "mdmt", 4, FIG5_HORIZON, counters,
                        simulate, regret_curves)
@@ -249,12 +576,25 @@ def main() -> int:
         check(rec["launches"]["gp_readout"] > 0, "baselines: no readout launch")
         emit(rec)
 
-    head = {"eirate": ei_cases[0], "gp_readout": ro_cases[2]}   # Fig-5 shapes
+    emit(readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters))
+
+    runs, rec = churn_phase(0, dev, ControlPlane, _matern_block_chol,
+                            _matern_draw, counters, ei_score, ref)
+    emit(rec)
+    main_launches["eirate_topk"] = runs["a"]["launches"]["eirate_topk"]
+
+    # Fig-5 shapes for the first two; the top-k kernel on the inputs the
+    # churn trace's run (a) gave one shard
+    head = {"eirate": ei_cases[0], "gp_readout": ro_cases[2],
+            "eirate_topk": rec["main_path_inputs"][0]}
     sources = {"eirate": ("src/repro_torch/kernels/csrc/ei_score.cu",
                           "src/repro/kernels/ei_score.py:185"),
                "gp_readout": ("src/repro_torch/kernels/csrc/gp_readout.cu",
-                              "src/repro/kernels/gp_readout.py:85")}
-    cases = {"eirate": ei_cases, "gp_readout": ro_cases}
+                              "src/repro/kernels/gp_readout.py:85"),
+               "eirate_topk": ("src/repro_torch/kernels/csrc/ei_topk.cu",
+                               "src/repro/kernels/ei_score.py:235")}
+    cases = {"eirate": ei_cases, "gp_readout": ro_cases,
+             "eirate_topk": topk_cases + rec["main_path_inputs"]}
     emit({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1], launches=main_launches[name],
@@ -262,7 +602,7 @@ def main() -> int:
         ms=head[name]["ms"], plain_ms=head[name]["plain_ms"],
         bound_ms=head[name]["bound_ms"], bound_by=head[name]["bound_by"],
         library_ms=None, shape_of_times=head[name]["case"])
-        for name in ("eirate", "gp_readout")]})
+        for name in ("eirate", "gp_readout", "eirate_topk")]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -3,7 +3,9 @@
 Each function takes plain numpy arrays and Python values — what a caller
 reads off a reference object with ``np.asarray`` — and builds the port's
 counterpart on a given device, so that two implementations can be put in
-the same mid-episode state and asked for the same next decision.
+the same mid-episode state and asked for the same next decision.  An
+open-world plane's ``state_snapshot()`` already is such arrays and values:
+:func:`control_plane_from_snapshot` loads one.
 """
 
 from __future__ import annotations
@@ -64,10 +66,38 @@ def control_plane(gp, *, selected, observed, best, cost, membership,
     the functions above) with the given masks, incumbents (``best``, -inf
     where a tenant has no observation), costs, membership, round-robin
     pointer and numpy ``bit_generator.state``."""
+    return ControlPlane.closed(gp, selected=selected, observed=observed,
+                               best=best, cost=cost, membership=membership,
+                               rr_pointer=int(rr_pointer),
+                               rng=_generator(rng_state),
+                               no_obs_floor=no_obs_floor, device=device)
+
+
+def control_plane_from_snapshot(arrays: dict, meta: dict, *,
+                                jitter: float = DEFAULT_JITTER,
+                                scorer: str = "ops",
+                                num_shards: int | None = None,
+                                shard_topk: int = 4,
+                                score_kernel: str = "eirate_topk",
+                                device=None) -> ControlPlane:
+    """An open-world :class:`ControlPlane` in the state of a reference
+    plane's ``state_snapshot()`` (numpy arrays and a JSON-able dict, the
+    format both packages write).  With ``num_shards=None`` the layout's
+    shard count is the snapshot's.  The plane rebuilds each tenant's GP by
+    replaying its observations and keeps the snapshot's readout cache, so
+    from here it decides as the plane that wrote the snapshot."""
+    if num_shards is None:
+        num_shards = meta["layout"]["num_shards"]
+    cp = ControlPlane(_generator(meta["rng_state"]), jitter=jitter,
+                      scorer=scorer, num_shards=num_shards,
+                      shard_topk=shard_topk, score_kernel=score_kernel,
+                      device=device)
+    cp.load_state(arrays, meta)
+    return cp
+
+
+def _generator(rng_state: dict) -> np.random.Generator:
+    """A numpy Generator in the given ``bit_generator.state``."""
     bitgen = getattr(np.random, rng_state["bit_generator"])()
     bitgen.state = rng_state
-    return ControlPlane(gp, selected=selected, observed=observed, best=best,
-                        cost=cost, membership=membership,
-                        rr_pointer=int(rr_pointer),
-                        rng=np.random.Generator(bitgen),
-                        no_obs_floor=no_obs_floor, device=device)
+    return np.random.Generator(bitgen)

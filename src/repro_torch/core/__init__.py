@@ -6,17 +6,25 @@
   miu.py           Maximum Incremental Uncertainty (Section 5.1)
   tenancy.py       problem instances (Azure / DeepLearning / Matérn synthetic)
   control_plane.py the per-event decision core (GP fold + EIrate pick),
-                   closed-world form
+                   closed and open world, scorers "ops" and "sharded"
   scheduler.py     event-driven MM-GP-EI + round-robin/random baselines
   regret.py        cumulative + instantaneous global-happiness regret
 """
 
-from .control_plane import ControlPlane, no_obs_floor, warm_start_queue  # noqa: F401
+from .control_plane import (  # noqa: F401
+    SCORERS,
+    ControlPlane,
+    TenantHandle,
+    no_obs_floor,
+    tenant_warm_models,
+    warm_start_queue,
+)
 from .ei import (  # noqa: F401
     choose_next,
     ei_matrix,
     ei_total,
     eirate_scores,
+    eirate_topk_fused,
     expected_improvement,
     single_tenant_ei_scores,
     tau,

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.ref import expected_improvement, ftz, tau  # noqa: F401
+from ..kernels.ref import expected_improvement, ftz, tau, topk_first  # noqa: F401
 
 NEG_INF = float("-inf")
 
@@ -49,6 +49,15 @@ def choose_next(mu, sigma, best_per_user, membership, cost, selected):
     scores = eirate_scores(mu, sigma, best_per_user, membership, cost, selected)
     idx = torch.argmax(scores)
     return idx, scores[idx]
+
+
+def eirate_topk_fused(mu, sigma, best_per_user, membership, cost, selected,
+                      *, k: int):
+    """The same masked EIrate vector as :func:`choose_next`, reduced to its
+    top ``min(k, n)`` as ``(values, ids)``, equal values in ascending id
+    (``lax.top_k``'s order), so ``ids[0]`` is :func:`choose_next`'s argmax."""
+    scores = eirate_scores(mu, sigma, best_per_user, membership, cost, selected)
+    return topk_first(scores, min(k, scores.shape[0]))
 
 
 def single_tenant_ei_scores(mu, sigma, best, member_row, selected):

@@ -127,6 +127,21 @@ class IncrementalGP:
     def num_observed(self) -> int:
         return self._k
 
+    def resource_stats(self) -> dict:
+        """Analytic byte/observation accounting of this engine's buffers:
+        ``alloc_bytes`` is the preallocated footprint (W and K (n, n), alpha,
+        diag_acc and mu0 (n,)), ``active_bytes`` the Cholesky-occupied share
+        (rows [0, k) of W and k entries of alpha).  Host arithmetic only."""
+        item = self.K.element_size()
+        n, k = self.n, self._k
+        return {
+            "models": n,
+            "obs": k,
+            "alloc_bytes": (2 * n * n + 3 * n) * item,
+            "active_bytes": (k * n + k) * item,
+            "dtype_bytes": item,
+        }
+
     def _readout(self, emit_sd: bool):
         k = self._k
         return ops.gp_readout(self._W[:k], self._alpha[:k], self.mu0,
@@ -150,6 +165,13 @@ class BlockIncrementalGP:
     Each block owns an :class:`IncrementalGP`; a host float32 readout cache
     holds the posterior of every model, and only blocks that folded an
     observation since the last readout ("dirty") are read again.
+
+    Blocks are also the unit of tenant churn: a block is appended
+    (:meth:`add_block`), retired (:meth:`retire_block`) or moved to other
+    global indices (:meth:`relocate_block`) without touching any other
+    block.  Retired entries keep their last values in the readout cache
+    (callers mask them); relocation zeroes the vacated entries.  Both
+    follow the reference, because a state snapshot stores those bytes.
     """
 
     def __init__(self, K=None, mu0=None, blocks: list | None = None,
@@ -182,6 +204,12 @@ class BlockIncrementalGP:
             raise ValueError("blocks must partition the model set")
         for b in idx:
             self.add_block(b, K[np.ix_(b, b)], mu0[b])
+
+    @classmethod
+    def empty(cls, jitter: float = DEFAULT_JITTER, *,
+              device=None) -> "BlockIncrementalGP":
+        """An instance with no tenants yet (the open-world control plane)."""
+        return cls(jitter=jitter, device=device)
 
     def ensure_capacity(self, n_cap: int) -> None:
         """Grow the cached readout to ``n_cap`` entries (padding: mu 0, var 0)."""
@@ -217,6 +245,42 @@ class BlockIncrementalGP:
         self._dirty.discard(bid)
         return bid
 
+    def retire_block(self, block_id: int) -> None:
+        """Drop one block: its engine is freed and its models stop accepting
+        observations.  Its cached readout entries go stale (callers mask
+        them)."""
+        b = self._blocks.pop(block_id)
+        self._engines.pop(block_id)
+        self._dirty.discard(block_id)
+        for g in b.tolist():
+            del self._local[int(g)]
+
+    def relocate_block(self, block_id: int, new_indices) -> None:
+        """Move a live block to new global indices (index-space compaction).
+        The engine works in block-local coordinates, so this is bookkeeping:
+        remap global -> local, move the cached readout values, and zero the
+        vacated entries (mu 0, var 0, the padding convention)."""
+        old = self._blocks[block_id]
+        new = np.asarray(new_indices, dtype=np.int64)
+        if new.shape != old.shape:
+            raise ValueError("relocation must preserve the block size")
+        own = set(old.tolist())
+        clash = [int(g) for g in new
+                 if int(g) in self._local and int(g) not in own]
+        if clash:
+            raise ValueError(f"target indices owned by a block: {clash}")
+        self.ensure_capacity(int(new.max()) + 1)
+        for g in old.tolist():
+            del self._local[int(g)]
+        for li, g in enumerate(new.tolist()):
+            self._local[int(g)] = (block_id, li)
+        mu_b, var_b = self._mu[old].copy(), self._var[old].copy()
+        self._mu[old] = 0.0
+        self._var[old] = 0.0
+        self._mu[new] = mu_b
+        self._var[new] = var_b
+        self._blocks[block_id] = new
+
     @staticmethod
     def blocks_from_membership(K, membership, atol: float = 0.0) -> list | None:
         """Tenant partition if candidate sets are disjoint and K has no
@@ -250,6 +314,22 @@ class BlockIncrementalGP:
     def num_observed(self) -> int:
         return len(self.observed)
 
+    def resource_stats(self) -> dict:
+        """Per-block and aggregate accounting: ``blocks`` maps block id to
+        its engine's :meth:`IncrementalGP.resource_stats`; the aggregate adds
+        the host readout cache (float32 mu and var over the capacity)."""
+        blocks = {bid: eng.resource_stats()
+                  for bid, eng in sorted(self._engines.items())}
+        return {
+            "blocks": blocks,
+            "num_blocks": len(blocks),
+            "capacity": self.n,
+            "obs_total": sum(b["obs"] for b in blocks.values()),
+            "alloc_bytes": sum(b["alloc_bytes"] for b in blocks.values()),
+            "active_bytes": sum(b["active_bytes"] for b in blocks.values()),
+            "readout_bytes": 2 * self.n * 4,
+        }
+
     def _flush(self) -> None:
         # one readout and one device-to-host copy per dirty block
         for bi in self._dirty:
@@ -263,6 +343,14 @@ class BlockIncrementalGP:
         self._flush()
         return (torch.tensor(self._mu, device=self.device),
                 torch.tensor(self._var, device=self.device))
+
+    def posterior_host(self):
+        """(mu, var) as the engine's own host float32 buffers (read-only by
+        convention).  The sharded scorer takes these and ``np.sqrt`` of var
+        (correctly rounded, as ``rn(torch.sqrt, .)`` is) without a round
+        trip through the device."""
+        self._flush()
+        return self._mu, self._var
 
     def posterior_sd(self):
         mu, var = self.posterior()

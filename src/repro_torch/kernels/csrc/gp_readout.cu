@@ -6,7 +6,9 @@
 //   mu(x)  = mu0(x) + sum_r alpha[r] * W[r, x]
 //   var(x) = max(K_diag(x) - sum_r W[r, x]^2, 0)      (sqrt of it with emit_sd)
 //
-// over the k active rows of W = L^{-1} K[obs, :].
+// over the k active rows of W = L^{-1} K[obs, :].  Row r of W starts at
+// W + r * ldw (ldw >= n), so a column slice of a wider W (one shard's span
+// of the sharded plane) is read in place.
 //
 // Bound on an H100: one read of W, k*n*4 bytes, over 3.35 TB/s; the four
 // flops per element are far below the card's rate, so the pass is bound by
@@ -34,13 +36,13 @@ __global__ void gp_readout_kernel(const float* __restrict__ W,
                                   const float* __restrict__ k_diag,
                                   float* __restrict__ mu_out,
                                   float* __restrict__ var_out, int k, int n,
-                                  int emit_sd) {
+                                  int ldw, int emit_sd) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= n) return;
   float dot = 0.0f;
   float sq = 0.0f;
   for (int r = 0; r < k; ++r) {
-    const float w = W[static_cast<size_t>(r) * n + x];
+    const float w = W[static_cast<size_t>(r) * ldw + x];
     dot = dot + alpha[r] * w;
     sq = sq + w * w;
   }
@@ -54,9 +56,9 @@ __global__ void gp_readout_kernel(const float* __restrict__ W,
 extern "C" int gp_readout_launch(const float* W, const float* alpha,
                                  const float* mu0, const float* k_diag,
                                  float* mu_out, float* var_out, int k, int n,
-                                 int emit_sd, void* stream) {
+                                 int ldw, int emit_sd, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   gp_readout_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      W, alpha, mu0, k_diag, mu_out, var_out, k, n, emit_sd);
+      W, alpha, mu0, k_diag, mu_out, var_out, k, n, ldw, emit_sd);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,13 @@
-"""Multi-tenant EIrate scoring: the CUDA kernel's wrapper.
+"""Multi-tenant EIrate scoring: the wrappers of the two CUDA kernels.
 
-Counterpart of ``repro.kernels.ei_score.eirate_pallas``.  The kernel
-(``csrc/ei_score.cu``) runs one thread per model column over uint8
-membership; its plain version is ``ref.eirate_ref``.  ``ops.eirate``
-sends CPU tensors to the plain version and CUDA tensors here, where they
-launch the kernel or raise.
+``eirate`` is the counterpart of ``repro.kernels.ei_score.eirate_pallas``:
+the kernel (``csrc/ei_score.cu``) runs one thread per model column over
+uint8 membership; its plain version is ``ref.eirate_ref``.  ``eirate_topk``
+is the counterpart of ``eirate_topk_pallas``: the kernel
+(``csrc/ei_topk.cu``) scores each block of columns with the same per-column
+code and keeps the block's top-k; its plain version is
+``ref.eirate_topk_ref``.  ``ops`` sends CPU tensors to the plain versions
+and CUDA tensors here, where they launch a kernel or raise.
 """
 
 from __future__ import annotations
@@ -14,8 +17,12 @@ import functools
 
 import torch
 
-#: kernel launches since the last reset (launches only, never the CPU path)
+from . import ref
+
+#: launches of the EIrate kernel since the last reset (never the CPU path)
 launches = 0
+#: launches of the EIrate top-k kernel since the last reset
+topk_launches = 0
 
 _FLOATS = ("mu", "sigma", "best", "cost")
 _BYTES = (torch.bool, torch.uint8)
@@ -31,17 +38,23 @@ def _launcher():
     return fn
 
 
-def eirate(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
-    """(n,) EIrate scores, -1e30 at selected models, from the kernel.
+@functools.cache
+def _topk_launcher():
+    from .. import _build
+    fn = _build.load("ei_topk").eirate_topk_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    mu, sigma, cost: (n,) float32; best: (N,) float32; membership: (N, n)
-    and selected: (n,), bool or uint8.  All on one CUDA device, contiguous."""
-    global launches
+
+def _check(kernel, mu, sigma, best, membership, cost, selected):
+    """Device, shape, type and contiguity checks shared by both kernels;
+    returns (N, n)."""
     args = dict(mu=mu, sigma=sigma, best=best, membership=membership,
                 cost=cost, selected=selected)
     dev = mu.device
     if dev.type != "cuda":
-        raise ValueError(f"the eirate kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got {dev}")
     n, N = mu.shape[0], best.shape[0]
     shapes = dict(mu=(n,), sigma=(n,), best=(N,), membership=(N, n),
                   cost=(n,), selected=(n,))
@@ -57,8 +70,19 @@ def eirate(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
             raise TypeError(f"{name} must be bool or uint8, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if max(N, n) >= 2**31:
+    if max(N, n) >= 2**31 - ref.BLOCK_MODELS:
         raise ValueError(f"(N, n) = ({N}, {n}) exceeds the kernel's int sizes")
+    return N, n
+
+
+def eirate(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
+    """(n,) EIrate scores, -1e30 at selected models, from the kernel.
+
+    mu, sigma, cost: (n,) float32; best: (N,) float32; membership: (N, n)
+    and selected: (n,), bool or uint8.  All on one CUDA device, contiguous."""
+    global launches
+    N, n = _check("eirate", mu, sigma, best, membership, cost, selected)
+    dev = mu.device
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -72,3 +96,37 @@ def eirate(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
         raise RuntimeError(f"eirate kernel launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def eirate_topk(mu, sigma, best, membership, cost, selected, *, k: int = 4):
+    """(values (k,) float32, global indices (k,) int32) of the EIrate top-k,
+    equal values in ascending index, from the top-k kernel.
+
+    Inputs as :func:`eirate`.  The kernel emits kb = min(k, bn) candidates
+    per block of bn = min(256, n) columns; the merge to the global top-k
+    (``ref.merge_block_topk``: mask index >= n, pad to k, stable sort) runs
+    as PyTorch ops on the same stream, as the TPU version's runs outside
+    its kernel."""
+    global topk_launches
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    N, n = _check("eirate_topk", mu, sigma, best, membership, cost, selected)
+    dev = mu.device
+    bn = min(ref.BLOCK_MODELS, max(n, 1))
+    kb = min(k, bn)
+    nb = -(-n // bn)
+    topv = torch.empty(nb * kb, dtype=torch.float32, device=dev)
+    topi = torch.empty(nb * kb, dtype=torch.int32, device=dev)
+    if n > 0:
+        fn = _topk_launcher()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(mu.data_ptr(), sigma.data_ptr(), best.data_ptr(),
+                     membership.data_ptr(), cost.data_ptr(),
+                     selected.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+                     N, n, bn, kb, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"eirate_topk kernel launch failed: cudaError {err}")
+        topk_launches += 1
+    return ref.merge_block_topk(topv, topi, n, k)

@@ -22,7 +22,7 @@ launches = 0
 def _launcher():
     from .. import _build
     fn = _build.load("gp_readout").gp_readout_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -30,7 +30,9 @@ def _launcher():
 def gp_readout(W, alpha, mu0, k_diag, *, emit_sd: bool = False):
     """(mu (n,), var (n,)) -- or (mu, sd) with ``emit_sd`` -- from the
     kernel, over W (k, n), alpha (k,), mu0 (n,), k_diag (n,), all float32
-    on one CUDA device, contiguous.  k may be 0."""
+    on one CUDA device.  W's rows may be strided (a column slice of a wider
+    buffer, unit stride along a row); the others are contiguous.  k may be
+    0."""
     global launches
     dev = W.device
     if dev.type != "cuda":
@@ -48,9 +50,15 @@ def gp_readout(W, alpha, mu0, k_diag, *, emit_sd: bool = False):
                              f"expected {shapes[name]}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
+        if name == "W":
+            if (k > 0 and n > 1 and W.stride(1) != 1) or (
+                    k > 1 and W.stride(0) < n):
+                raise ValueError("W must have unit stride along its rows, "
+                                 f"got strides {W.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if max(k, n) >= 2**31:
+    ldw = W.stride(0) if k > 1 else n
+    if max(k, n, ldw) >= 2**31:
         raise ValueError(f"(k, n) = ({k}, {n}) exceeds the kernel's int sizes")
     mu = torch.empty(n, dtype=torch.float32, device=dev)
     var = torch.empty(n, dtype=torch.float32, device=dev)
@@ -61,7 +69,7 @@ def gp_readout(W, alpha, mu0, k_diag, *, emit_sd: bool = False):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(W.data_ptr(), alpha.data_ptr(), mu0.data_ptr(),
                  k_diag.data_ptr(), mu.data_ptr(), var.data_ptr(), k, n,
-                 int(emit_sd), stream)
+                 ldw, int(emit_sd), stream)
     if err != 0:
         raise RuntimeError(f"gp_readout kernel launch failed: cudaError {err}")
     launches += 1

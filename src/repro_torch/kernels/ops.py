@@ -17,6 +17,16 @@ def eirate(mu, sigma, best, membership, cost, selected):
     return ei_score.eirate(mu, sigma, best, membership, cost, selected)
 
 
+def eirate_topk(mu, sigma, best, membership, cost, selected, *, k: int = 4):
+    """(values (k,), indices (k,)) of the EIrate top-k, equal values in
+    ascending index; short vectors pad with (-1e30, 0)."""
+    if mu.device.type == "cpu":
+        return ref.eirate_topk_ref(mu, sigma, best, membership, cost,
+                                   selected, k=k)
+    return ei_score.eirate_topk(mu, sigma, best, membership, cost, selected,
+                                k=k)
+
+
 def gp_readout(W, alpha, mu0, k_diag, *, emit_sd=False):
     """(mu, var) over the k rows of W (k, n), or (mu, sd) with ``emit_sd``."""
     if W.device.type == "cpu":

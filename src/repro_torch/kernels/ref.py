@@ -77,6 +77,71 @@ def eirate_ref(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
                        scores)
 
 
+#: model columns per block of the top-k kernel (the TPU kernel's bn)
+BLOCK_MODELS = 256
+
+
+def topk_first(values: torch.Tensor, k: int):
+    """(values, positions) of the k largest entries of a 1-D tensor, equal
+    values in ascending position: the order of ``lax.top_k``.  A stable
+    descending sort; ``torch.topk`` promises no order among equal values,
+    so no decision path uses it."""
+    v, pos = torch.sort(values, descending=True, stable=True)
+    return v[:k], pos[:k]
+
+
+def merge_block_topk(topv, topi, n: int, k: int):
+    """The global top-k from per-block candidates (flat, block-major):
+    candidates at index >= n are masked to -1e30, too few candidates are
+    padded with (-1e30, 0), then :func:`topk_first`.  Shared by the kernel's
+    wrapper and :func:`eirate_topk_ref`."""
+    v = torch.where(topi < n, topv, torch.full_like(topv, NEG_LARGE))
+    i = topi
+    if v.shape[0] < k:
+        pad = k - v.shape[0]
+        v = torch.cat([v, torch.full((pad,), NEG_LARGE, dtype=v.dtype,
+                                     device=v.device)])
+        i = torch.cat([i, torch.zeros(pad, dtype=i.dtype, device=i.device)])
+    v, pos = topk_first(v, k)
+    return v, i[pos]
+
+
+def block_topk_ref(scores: torch.Tensor, k: int):
+    """Per block of ``BLOCK_MODELS`` columns (``min(256, n)`` when n is
+    smaller), kb = min(k, bn) rounds of: the largest value, the lowest index
+    at it (``torch.argmax`` returns the first), then that entry set to -1e30.
+    Columns past n in the last block hold -1e30.  Returns flat block-major
+    candidates: values (blocks * kb,) float32, global indices int32."""
+    n = scores.shape[0]
+    bn = min(BLOCK_MODELS, max(n, 1))
+    kb = min(k, bn)
+    nb = -(-n // bn)
+    work = torch.full((nb * bn,), NEG_LARGE, dtype=torch.float32,
+                      device=scores.device)
+    work[:n] = scores
+    work = work.view(nb, bn)
+    vals, idxs = [], []
+    for _ in range(kb):
+        idx = torch.argmax(work, dim=1, keepdim=True)
+        vals.append(work.gather(1, idx))
+        idxs.append(idx)
+        work.scatter_(1, idx, NEG_LARGE)
+    base = torch.arange(nb, device=scores.device)[:, None] * bn
+    topi = (torch.cat(idxs, 1) + base).reshape(-1)
+    return torch.cat(vals, 1).reshape(-1), topi.to(torch.int32)
+
+
+def eirate_topk_ref(mu, sigma, best, membership, cost, selected, *, k: int = 4):
+    """(values (k,), global indices (k,) int32) of the EIrate top-k, by the
+    top-k kernel's block-structured rounds on :func:`eirate_ref`'s scores,
+    so that kernel and plain version agree on every entry, -1e30 candidates
+    included.  (A flat top-k of the scores agrees on every value and on the
+    indices of values above -1e29.)"""
+    scores = eirate_ref(mu, sigma, best, membership, cost, selected)
+    topv, topi = block_topk_ref(scores, k)
+    return merge_block_topk(topv, topi, scores.shape[0], k)
+
+
 def gp_readout_ref(W, alpha, mu0, k_diag, *, emit_sd: bool = False):
     """(mu, var) over the k rows of W, or (mu, sd) with ``emit_sd``.  Rows
     are folded in ascending order, the order ``IncrementalGP`` sums its

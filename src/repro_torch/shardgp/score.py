@@ -1,0 +1,245 @@
+"""The sharded scoring plane: GP-EI decisions with the model axis split
+over a mesh of devices.
+
+Counterpart of ``repro.shardgp.score``.  One decision is the batched
+EIrate over every live model and the argmax over the unselected pool.  The
+model axis is split into ``S`` equal contiguous slices, one per shard of
+the mesh (``repro_torch.launch.mesh.make_scoring_mesh``):
+
+  1. each shard scores its slice and reduces it to a local top-k (values
+     and global ids) on its own device;
+  2. the S*k candidates are copied to ``mesh[0]`` and concatenated in shard
+     order;
+  3. the global pick: the top-k of the candidates, the lowest global id
+     winning among equal values.
+
+JAX runs this as one ``shard_map`` program; the port keeps a single
+controller that launches each shard's work in turn, with no collective and
+no ``torch.distributed``.  Several shards may share a device (an explicit
+``device=`` puts them all on it), which is how the CPU tests and a
+one-card run drive S = 4.
+
+Exactness: a score depends only on its own column, so splitting changes no
+value; each local top-k and the global pick order equal values by ascending
+position (``kernels.ref.topk_first``, a stable sort, never ``torch.topk``),
+and the gathered list is in (shard, rank) order, ascending in global id at
+equal value.  So the pick is the first argmax of the unsharded score
+vector, tie-break included.  Both planes must see the same index space
+(``layout.py``).
+
+Per-shard state (membership columns, costs) is device-resident and
+refreshed only on churn (:meth:`ShardedScorer.refresh`); per-decision
+inputs (mu, sd, selected) are padded to the capacity on the host and
+uploaded each call.  Padding is born selected with unit cost.
+
+Two score routes, each a hand-written CUDA kernel on the card and its plain
+version on the CPU (``kernels.ops``):
+
+  ``"eirate_topk"``  the EIrate top-k kernel (``csrc/ei_topk.cu``), the
+                     counterpart of the reference's ``"pallas_topk"``; the
+                     default;
+  ``"eirate"``       the EIrate kernel (``csrc/ei_score.cu``), then the local
+                     top-k in PyTorch; the counterpart of ``"pallas"``.
+
+The reference's ``"xla"`` route has no counterpart: on the card every
+route is a kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from ..kernels.ref import topk_first
+from ..launch.mesh import make_scoring_mesh
+
+SCORE_KERNELS = ("eirate_topk", "eirate")
+
+#: how each logical axis of the scoring state maps onto the mesh: the model
+#: axis is split over the shards; tenants (N ~ 10^2-10^3, small next to
+#: |L| ~ 10^5-10^6) and the observation axis of the readout's W are
+#: replicated, so the readout needs no cross-shard reduction
+SCORING_RULES = {"models": "shard", "tenants": None, "obs": None}
+
+_NEG_INF = float("-inf")
+
+
+def _global_pick(allv: torch.Tensor, allg: torch.Tensor, k: int):
+    """Top-k of the gathered (S*k,) candidates, whose order is (shard,
+    rank)-major, ascending global id at equal value: the lowest global id
+    wins ties, as the unsharded argmax."""
+    v, pos = topk_first(allv, k)
+    return v, allg[pos]
+
+
+def _local_topk(scores: torch.Tensor, k: int, base: int):
+    """A slice smaller than k yields what it has, padded with (-inf, 0)."""
+    kk = min(k, scores.shape[0])
+    v, li = topk_first(scores, kk)
+    g = li + base
+    if kk < k:
+        v = torch.cat([v, torch.full((k - kk,), _NEG_INF, dtype=v.dtype,
+                                     device=v.device)])
+        g = torch.cat([g, torch.zeros(k - kk, dtype=g.dtype, device=g.device)])
+    return v, g
+
+
+def _score_local(mu, sd, best, member, cost, selected, kernel: str, k: int,
+                 base: int):
+    """One shard's slice -> (k,) local best values and global ids."""
+    if kernel == "eirate_topk":
+        v, li = ops.eirate_topk(mu, sd, best, member, cost, selected, k=k)
+        return v, li.long() + base
+    scores = ops.eirate(mu, sd, best, member, cost, selected)
+    return _local_topk(scores, k, base)
+
+
+class ShardedScorer:
+    """Device-resident per-shard mirrors and the decision entry points.
+
+    ``num_shards`` and ``device`` go to :func:`make_scoring_mesh`:
+    ``device=None`` needs one card per shard, an explicit ``device`` puts
+    every shard on it."""
+
+    def __init__(self, num_shards: int | None = None, *, topk: int = 4,
+                 kernel: str = "eirate_topk", device=None):
+        if kernel not in SCORE_KERNELS:
+            raise ValueError(
+                f"kernel must be one of the port's routes {SCORE_KERNELS}, "
+                f"got {kernel!r}")
+        self.mesh = make_scoring_mesh(num_shards, device)
+        self.num_shards = len(self.mesh)
+        self.topk = max(1, topk)
+        self.kernel = kernel
+        self._member: list[torch.Tensor] | None = None   # (N_cap, C) per shard
+        self._cost: list[torch.Tensor] | None = None     # (C,) per shard
+        self._cap = 0
+
+    # ---- per-shard mirrors -------------------------------------------------
+
+    def _padded_cap(self, n: int) -> int:
+        s = self.num_shards
+        return ((n + s - 1) // s) * s
+
+    def _span(self, s: int) -> slice:
+        c = self._cap // self.num_shards
+        return slice(s * c, (s + 1) * c)
+
+    def refresh(self, membership: np.ndarray, cost: np.ndarray) -> None:
+        """Full host -> device refresh of the churn-rate state (membership
+        columns and costs), padded to a shard multiple."""
+        n = cost.shape[0]
+        cap = self._padded_cap(n)
+        mem = np.zeros((membership.shape[0], cap), dtype=bool)
+        mem[:, :n] = membership
+        c = np.ones(cap, dtype=np.float32)
+        c[:n] = cost
+        self._cap = cap
+        self._member = [torch.from_numpy(np.ascontiguousarray(mem[:, self._span(s)]))
+                        .to(dev) for s, dev in enumerate(self.mesh)]
+        self._cost = [torch.from_numpy(c[self._span(s)].copy()).to(dev)
+                      for s, dev in enumerate(self.mesh)]
+
+    def _pad(self, x, fill, dtype) -> np.ndarray:
+        if isinstance(x, torch.Tensor):
+            x = x.cpu().numpy()
+        x = np.asarray(x)
+        if x.shape[0] == self._cap:
+            return x.astype(dtype, copy=False)
+        out = np.full(self._cap, fill, dtype=dtype)
+        out[:x.shape[0]] = x
+        return out
+
+    def _per_shard(self, x) -> list[torch.Tensor]:
+        """Shard s's slice of a (cap,) host array or tensor on ``mesh[s]``.
+        Shards that share a device share one upload."""
+        full: dict[torch.device, torch.Tensor] = {}
+        out = []
+        for s, dev in enumerate(self.mesh):
+            if dev not in full:
+                t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                full[dev] = t.to(dev)
+            out.append(full[dev][self._span(s)])
+        return out
+
+    def _replicated(self, x) -> list[torch.Tensor]:
+        t = torch.as_tensor(x, dtype=torch.float32)
+        full = {dev: t.to(dev) for dev in set(self.mesh)}
+        return [full[dev] for dev in self.mesh]
+
+    def _costs(self, speed: float) -> list[torch.Tensor]:
+        if speed == 1.0:
+            return self._cost
+        # by a tensor: CUDA divides by a host scalar through its reciprocal
+        return [c / torch.full_like(c, speed) for c in self._cost]
+
+    def _gather_pick(self, cands, k: int):
+        home = self.mesh[0]
+        allv = torch.cat([v.to(home) for v, _ in cands])
+        allg = torch.cat([g.to(home) for _, g in cands])
+        return _global_pick(allv, allg, k)
+
+    def _require_refresh(self) -> None:
+        if self._member is None:
+            raise RuntimeError("refresh() must run before a decision")
+
+    # ---- decisions ---------------------------------------------------------
+
+    def decide_topk(self, mu, sd, best, selected, speed: float = 1.0):
+        """(values (k,), global ids (k,)) of the global EIrate top-k, as
+        tensors on ``mesh[0]``."""
+        self._require_refresh()
+        mus = self._per_shard(self._pad(mu, 0.0, np.float32))
+        sds = self._per_shard(self._pad(sd, 0.0, np.float32))
+        sels = self._per_shard(self._pad(selected, True, bool))
+        bests = self._replicated(best)
+        costs = self._costs(speed)
+        c = self._cap // self.num_shards
+        cands = [_score_local(mus[s], sds[s], bests[s], self._member[s],
+                              costs[s], sels[s], self.kernel, self.topk, s * c)
+                 for s in range(self.num_shards)]
+        return self._gather_pick(cands, self.topk)
+
+    def decide(self, mu, sd, best, selected,
+               speed: float = 1.0) -> tuple[int, float]:
+        """The decision the control plane takes: the global argmax (lowest
+        id among equal scores) and its score, read in one copy."""
+        v, g = self.decide_topk(mu, sd, best, selected, speed)
+        v0, g0 = torch.stack((v[0].double(), g[0].double())).tolist()
+        return int(g0), float(v0)
+
+    def decide_topk_classes(self, mu, sd, best, selected, rates, overheads,
+                            k: int | None = None):
+        """Per-device-class top-k: needs the class-axis EIrate kernel, which
+        arrives with the elastic-device-plane slice of the port."""
+        raise NotImplementedError(
+            "decide_topk_classes needs the class-axis EIrate kernel "
+            "(eirate_classes_pallas), ported with the elastic device plane "
+            "slice")
+
+    def readout_decide_topk(self, W, alpha, mu0, kdiag, best, selected,
+                            speed: float = 1.0):
+        """Readout, score and pick over an explicit (k_obs, cap) W: each
+        shard runs the GP readout kernel on its column slice of W (a strided
+        view where W lies on the shard's device, no copy), then scores and
+        reduces it.  The length of ``mu0``, ``kdiag`` and ``selected`` must
+        be the refreshed capacity (pad upstream)."""
+        self._require_refresh()
+        if W.shape[1] != self._cap:
+            raise ValueError(f"W has {W.shape[1]} columns, the scorer's "
+                             f"capacity is {self._cap}")
+        sels = self._per_shard(torch.as_tensor(selected))
+        mu0s, kds = self._per_shard(mu0), self._per_shard(kdiag)
+        bests = self._replicated(best)
+        costs = self._costs(speed)
+        c = self._cap // self.num_shards
+        cands = []
+        for s, dev in enumerate(self.mesh):
+            mu, sd = ops.gp_readout(W[:, self._span(s)].to(dev),
+                                    alpha.to(dev), mu0s[s], kds[s],
+                                    emit_sd=True)
+            cands.append(_score_local(mu, sd, bests[s], self._member[s],
+                                      costs[s], sels[s], self.kernel,
+                                      self.topk, s * c))
+        return self._gather_pick(cands, self.topk)

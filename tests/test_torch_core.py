@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import jax.numpy as jnp  # noqa: E402
+jnp = pytest.importorskip("jax.numpy")
 
 import repro.core as J  # noqa: E402
 import repro_torch.core as T  # noqa: E402
@@ -241,8 +241,10 @@ def test_mid_episode_decision_after_carrying_state(make, steps):
 
 def test_plane_guards():
     prob = T.synthetic_matern_problem(2, 4, seed=0)
+    sharded = T.ControlPlane.from_problem(prob, scorer="sharded", device="cpu")
+    assert sharded.scorer == "sharded" and sharded.choose_mdmt() == (0, -1)
     with pytest.raises(NotImplementedError, match="slice"):
-        T.ControlPlane.from_problem(prob, scorer="sharded", device="cpu")
+        sharded.choose_mdmt_batch([1.0], [0.0], 2)
     with pytest.raises(ValueError):
         T.ControlPlane.from_problem(prob, scorer="fused", device="cpu")
     plane = T.ControlPlane.from_problem(prob, device="cpu")

@@ -16,7 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import simulate, synthetic_matern_problem  # noqa: E402
+from repro_torch.core import ControlPlane, simulate, synthetic_matern_problem  # noqa: E402
+from repro_torch.core.tenancy import _matern_block_chol  # noqa: E402
 from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +49,69 @@ def test_eirate_kernel_matches_plain(cuda, rng, n, N):
     torch.cuda.synchronize()
     assert ei_score.launches == before + 1
     torch.testing.assert_close(got, ref.eirate_ref(*args), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n,N,k,layout", [
+    (2500, 50, 4, "random"), (513, 100, 16, "random"),   # n not a multiple of 256
+    (600, 3, 6, "tie"), (3, 2, 8, "random"),              # k > n
+])
+def test_eirate_topk_kernel_matches_plain(cuda, rng, n, N, k, layout):
+    args = _ei_inputs(rng, n, N, cuda)
+    if layout == "tie":
+        for t, fill in zip(args, (0.0, 1.0, 0.0, True, 1.0, False)):
+            t.fill_(fill)
+    before = (ei_score.topk_launches, ei_score.launches)
+    v, i = ops.eirate_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert (ei_score.topk_launches, ei_score.launches) == (before[0] + 1, before[1])
+    wv, wi = ref.eirate_topk_ref(*args, k=k)
+    torch.testing.assert_close(v, wv, atol=0, rtol=0)
+    assert torch.equal(i, wi)
+    if layout == "tie":
+        assert i.tolist() == list(range(k))
+    live = v > -1e29
+    assert torch.equal(ops.eirate(*args)[i[live].long()], v[live])
+
+
+def _churn_picks(plane):
+    """A short churn sequence: observations, a retire, an add, a
+    compaction and a reshard; returns the picks."""
+    rng = np.random.default_rng(1)
+    K5 = _matern_block_chol(5, 0.2, 0.04)[0]
+    for _ in range(6):
+        plane.add_tenant(K5, np.zeros(5), np.ones(5))
+    picks = []
+    for step in range(30):
+        pick = plane.choose_mdmt()
+        if pick is None:
+            break
+        picks.append(pick)
+        plane.record_start(pick[0])
+        plane.record_observation(pick[0], float(rng.uniform(0, 1)))
+        if step == 8:
+            plane.retire_tenant(1)
+            plane.add_tenant(K5, np.zeros(5), np.linspace(0.5, 2.0, 5))
+            plane.compact(1.0)
+        if step == 15:
+            plane.reshard(2)
+    return picks
+
+
+@pytest.mark.parametrize("kernel", ["eirate_topk", "eirate"])
+def test_sharded_plane_on_card_picks_the_ops_sequence(cuda, kernel):
+    counts = (ei_score.topk_launches, ei_score.launches)
+    ops_picks = _churn_picks(ControlPlane(scorer="ops", num_shards=4,
+                                          model_capacity=32, device="cpu"))
+    assert (ei_score.topk_launches, ei_score.launches) == counts   # CPU: none
+    sharded = ControlPlane(scorer="sharded", num_shards=4, model_capacity=32,
+                           score_kernel=kernel, device=cuda)
+    assert sharded._sharded.mesh == (cuda,) * 4
+    picks = _churn_picks(sharded)
+    assert picks == ops_picks and len(picks) == 30
+    moved = (ei_score.topk_launches - counts[0], ei_score.launches - counts[1])
+    # four shards to step 15, two after the reshard
+    want = 4 * 16 + 2 * 14
+    assert moved == ((want, 0) if kernel == "eirate_topk" else (0, want))
 
 
 @pytest.mark.parametrize("k,n", [(0, 50), (50, 50), (512, 2500)])

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import jax.numpy as jnp  # noqa: E402
+jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -24,9 +24,10 @@ from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
 @pytest.fixture(autouse=True)
 def cpu_path_never_launches():
     """CPU tensors take the plain versions: no kernel launch is counted."""
-    before = (ei_score.launches, gp_readout.launches)
+    before = (ei_score.launches, ei_score.topk_launches, gp_readout.launches)
     yield
-    assert (ei_score.launches, gp_readout.launches) == before
+    assert (ei_score.launches, ei_score.topk_launches,
+            gp_readout.launches) == before
 
 
 def _ei_inputs(rng, n, N):
@@ -101,6 +102,70 @@ def test_eirate_deep_tail_underflows_to_zero():
     np.testing.assert_array_equal(got, want)
 
 
+# --- EIrate top-k -------------------------------------------------------------
+
+@pytest.mark.parametrize("n,N,k,bm,bu", [
+    (64, 8, 4, 64, 8), (200, 33, 8, 64, 16), (513, 100, 16, 128, 64),
+    (17, 3, 4, 256, 256), (5, 2, 8, 256, 256),   # k > n: padded candidates
+])
+def test_eirate_topk_plain_matches_pallas_and_ref(rng, n, N, k, bm, bu):
+    """The plain version against the Pallas top-k (interpret mode) and the
+    flat jnp top-k: values to 1e-4 (the tolerance of test_kernels.py), ids
+    equal wherever the value is above -1e29 (the -1e30 entries of the
+    block-structured rounds and of a flat top-k differ in their ids)."""
+    arrays = _ei_inputs(rng, n, N)
+    v, i = ops.eirate_topk(*_t(*arrays), k=k)
+    assert v.shape == (k,) and i.shape == (k,) and i.dtype == torch.int32
+    j = [jnp.asarray(a) for a in arrays]
+    for jv, ji in (jops.eirate_topk(*j, k=k, block_models=bm, block_users=bu,
+                                    interpret=True),
+                   jref.eirate_topk_ref(*j, k=k)):
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-4, rtol=1e-4)
+        valid = np.asarray(jv) > -1e29
+        np.testing.assert_array_equal(i.numpy()[valid], np.asarray(ji)[valid])
+    # the head is the EIrate argmax, and the values are the scores themselves
+    scores = ops.eirate(*_t(*arrays))
+    assert int(i[0]) == int(torch.argmax(scores))
+    live = v > -1e29
+    np.testing.assert_array_equal(scores[i[live].long()].numpy(), v[live].numpy())
+
+
+def test_eirate_topk_ties_take_the_lowest_ids():
+    n, N, k = 600, 3, 6               # three blocks of 256 columns, all equal
+    mu, sg, best = np.zeros(n, np.float32), np.ones(n, np.float32), np.zeros(N, np.float32)
+    mem, cost, sel = np.ones((N, n), bool), np.ones(n, np.float32), np.zeros(n, bool)
+    v, i = ops.eirate_topk(*_t(mu, sg, best, mem, cost, sel), k=k)
+    assert i.tolist() == [0, 1, 2, 3, 4, 5] and (v == v[0]).all()
+    jv, ji = jops.eirate_topk(*(jnp.asarray(a) for a in (mu, sg, best, mem, cost, sel)),
+                              k=k, interpret=True)
+    assert np.asarray(ji).tolist() == [0, 1, 2, 3, 4, 5]
+
+
+def test_block_rounds_repeat_the_lowest_masked_index():
+    """The TPU kernel's quirk, kept: a block with fewer live columns than
+    k repeats its lowest -1e30 index in the later rounds."""
+    scores = torch.full((300,), -1e30)
+    scores[[10, 20, 270]] = torch.tensor([1.0, 2.0, 3.0])
+    topv, topi = ref.block_topk_ref(scores, 4)
+    assert topi.tolist() == [20, 10, 0, 0, 270, 256, 256, 256]
+    assert topv[:2].tolist() == [2.0, 1.0] and topv[4] == 3.0
+    v, i = ref.merge_block_topk(topv, topi, 300, 4)
+    assert i.tolist() == [270, 20, 10, 0]
+
+
+def test_eirate_topk_fused_matches_reference(rng):
+    from repro.core import ei as jei
+    from repro_torch.core import ei as tei
+    arrays = _ei_inputs(rng, 40, 6)
+    for k in (4, 50):
+        v, i = tei.eirate_topk_fused(*_t(*arrays), k=k)
+        jv, ji = jei.eirate_topk_fused(*(jnp.asarray(a) for a in arrays), k=k)
+        assert v.shape == (min(k, 40),)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-4, rtol=1e-4)
+        live = np.isfinite(np.asarray(jv))
+        np.testing.assert_array_equal(i.numpy()[live], np.asarray(ji)[live])
+
+
 # --- GP readout ----------------------------------------------------------------
 
 @pytest.mark.parametrize("k,n,bk,bn", [
@@ -152,6 +217,8 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
     args = [t.to("meta") for t in _t(*_ei_inputs(rng, 16, 2))]
     with pytest.raises(ValueError, match="CUDA"):
         ops.eirate(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.eirate_topk(*args, k=4)
     W = torch.zeros((3, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.gp_readout(W, torch.zeros(3, device="meta"),
@@ -161,7 +228,7 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
 def test_build_is_keyed_on_the_source():
     """Each source builds into its own library under build/repro_torch/,
     named by a hash of source and flags (a second run reuses it)."""
-    assert _build.sources() == ["ei_score", "gp_readout"]
+    assert _build.sources() == ["ei_score", "ei_topk", "gp_readout"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR

@@ -2,9 +2,14 @@
 """Where the time of one Algorithm-1 decision goes on the card.
 
     python3 tools/profile_decision.py [--users 50] [--models 50] [--steps 300]
+                                      [--open-world] [--scorer ops|sharded]
+                                      [--shards S]
 
-Builds the port's closed-world plane for the Fig-5 problem on the card,
-folds the warm start, and then repeats the scheduler's steady-state step —
+Builds the port's closed-world plane for the Fig-5 problem on the card (or,
+with ``--open-world``, an open-world plane that admits the same tenants one
+by one with ``add_tenant``; ``--scorer sharded --shards S`` scores over S
+logical shards on the card), folds the warm start, and then repeats the
+scheduler's steady-state step —
 one mdmt decision, then the fold of the chosen model's observation — for
 ``--steps`` steps (after 50 warm-up steps), twice:
 
@@ -41,6 +46,9 @@ def main() -> int:
     ap.add_argument("--users", type=int, default=50)
     ap.add_argument("--models", type=int, default=50)
     ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--open-world", action="store_true")
+    ap.add_argument("--scorer", default="ops", choices=("ops", "sharded"))
+    ap.add_argument("--shards", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decision: no CUDA device is available", file=sys.stderr)
@@ -50,14 +58,28 @@ def main() -> int:
     from repro_torch.kernels import ops
 
     prob = synthetic_matern_problem(args.users, args.models, seed=0)
-    plane = ControlPlane.from_problem(prob, np.random.default_rng(0), device="cuda")
+    if args.open_world:
+        plane = ControlPlane(np.random.default_rng(0), scorer=args.scorer,
+                             num_shards=args.shards, device="cuda")
+        to_prob = {}             # the plane's global id -> problem index
+        for u in range(prob.num_users):
+            idx = np.nonzero(prob.membership[u])[0]
+            h = plane.add_tenant(prob.K[np.ix_(idx, idx)], prob.mu0[idx],
+                                 prob.cost[idx])
+            to_prob.update(zip(h.models.tolist(), idx.tolist()))
+        to_plane = {v: k for k, v in to_prob.items()}
+    else:
+        plane = ControlPlane.from_problem(
+            prob, np.random.default_rng(0), scorer=args.scorer,
+            num_shards=args.shards, device="cuda")
+        to_prob = to_plane = {m: m for m in range(prob.num_models)}
 
     def fold(m: int) -> None:
         plane.record_start(m)
-        plane.record_observation(m, float(prob.z_true[m]))
+        plane.record_observation(m, float(prob.z_true[to_prob[m]]))
 
     for m in warm_start_queue(prob, 2):
-        fold(m)
+        fold(to_plane[m])
 
     def step() -> None:
         fold(plane.choose_mdmt()[0])
@@ -90,12 +112,19 @@ def main() -> int:
     parts = Counter()
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        mu, sd = plane.gp.posterior_sd()
+        if plane.scorer == "sharded":       # the host cache, as choose_mdmt
+            mu, var = plane.gp.posterior_host()
+            sd = np.sqrt(var)
+        else:
+            mu, sd = plane.gp.posterior_sd()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        scores = ops.eirate(mu, sd, plane._best_t, plane._membership_t,
-                            plane._cost_t, plane._selected_t)
-        m = int(torch.argmax(scores))
+        if plane.scorer == "sharded":
+            m, _ = plane._sharded.decide(mu, sd, plane._best_t, plane.selected)
+        else:
+            scores = ops.eirate(mu, sd, plane._best_t, plane._membership_t,
+                                plane._cost_t, plane._selected_t)
+            m = int(torch.argmax(scores))
         t2 = time.perf_counter()
         fold(m)
         torch.cuda.synchronize()
@@ -106,7 +135,8 @@ def main() -> int:
 
     s = args.steps
     print(json.dumps({
-        "problem": prob.name, "steps": s,
+        "problem": prob.name, "steps": s, "open_world": args.open_world,
+        "scorer": plane.scorer, "shards": args.shards,
         "wall_ms_per_step": wall / s * 1e3,
         "device_busy_ms_per_step": busy_us / s / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
