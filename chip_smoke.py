@@ -32,6 +32,20 @@ Run from the root of a checkout on a machine with one CUDA card and
                  eirate_topk launched once per shard per decision in (a);
                  then the top-k kernel held against its plain version on the
                  inputs run (a) gave it
+  devplane_churn the elastic device plane (DevPlaneEngine) through a seeded
+                 tenant + device churn trace (400 sessions, up to 5,000 live
+                 models, 16 devices of two classes, joins, leaves and
+                 preemptions), run as (a) batched assignment, scorer ops;
+                 (b) (a) with the sharded scorer, S = 4 logical shards on
+                 the card; (c) a homogeneous fleet, batched; (d) (c) with
+                 sequential assignment; (e) (a) with snapshots, crashed
+                 halfway and recovered from the durable log and newest
+                 snapshot; then (a) on the CPU with the plain versions, to
+                 a horizon: (a) = (b) = (e) = CPU and (c) = (d) trials, and
+                 the class-axis EIrate kernel launched once per scoring
+                 pass in (a) and once per shard per pass in (b); then that
+                 kernel held against its plain version on the inputs run (a)
+                 gave it
 
 Then a line listing each kernel, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -40,8 +54,10 @@ Then a line listing each kernel, the card's name and power limit as
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -71,7 +87,24 @@ CHURN_DEVICES = 4              # simulated training devices
 CHURN_DECISIONS = 1000
 CHURN_EVERY = 10               # decisions between retire + arrive + compact
 CHURN_RESHARD = {400: 2, 600: 4}   # decision count -> new shard count
-CHURN_CPU_DECISIONS = 1000     # the CPU twin's run (all of it, or a prefix)
+CHURN_CPU_DECISIONS = 500      # the CPU twin's run (all of it, or a prefix;
+                               # cut from 1,000 to make room for devplane_churn)
+
+# devplane_churn: benchmarks/device_churn.py's wave trace (arrival rate 4,
+# seed 0, one fast join class, join / leave / preempt rates 0.05 / 0.02 /
+# 0.03, session scale 25, uniform costs) at 400 sessions and m_max 50, so
+# the plane holds thousands of live models as churn_sharded does
+DEVPLANE_TRACE = dict(num_sessions=400, arrival_rate=4.0, seed=0,
+                      initial_slices=16, join_classes=(("fast", 16, 2.0),),
+                      join_rate=0.05, leave_rate=0.02, preempt_rate=0.03,
+                      m_min=2, m_max=50, session_scale=25.0, cost="uniform")
+DEVPLANE_FLEET = (("slow", 8), ("fast", 8))
+DEVPLANE_MAX_LIVE = 5000
+DEVPLANE_SHARDS = 4
+DEVPLANE_SNAPSHOT_EVERY = 200  # processed events between snapshots in (e)
+DEVPLANE_CPU_HORIZON = np.inf  # the CPU twin's run (all of it, or a prefix
+                               # to this many simulated seconds)
+CLASSES_C = 4                  # device classes of the service-size case
 
 
 def emit(obj) -> None:
@@ -202,6 +235,92 @@ def topk_case(name, N, n, layout, k, rng, dev, ei_score, ref):
     if layout == "tie":
         check(rec["ids"] == list(range(k)),
               f"eirate_topk tie case: ids {rec['ids']}, expected 0..{k - 1}")
+    return rec
+
+
+def classes_inputs(N, n, layout, C, rng, dev):
+    """Class-axis EIrate inputs: :func:`ei_inputs` with a (C, n) cost
+    matrix cost / rate_c + overhead_c built on the card as the control
+    plane builds it (by tensors).  ``"c1"`` is one class at rate 1 and
+    overhead 0 over disjoint membership; ``"gate"`` puts +inf (the
+    registry's memory gate) at a fifth of row 1."""
+    mu, sg, best, mem, cost, sel = ei_inputs(
+        N, n, "disjoint" if layout in ("c1", "gate") else layout, rng, dev)
+    if layout == "c1":
+        rates, overs = np.ones(C, np.float32), np.zeros(C, np.float32)
+    else:
+        rates = rng.uniform(0.5, 4.0, C).astype(np.float32)
+        overs = rng.uniform(0.0, 1.0, C).astype(np.float32)
+    rates_t, overs_t = (torch.from_numpy(a).to(dev) for a in (rates, overs))
+    cm = cost[None, :] / rates_t[:, None] + overs_t[:, None]
+    if layout == "gate":
+        cm[1, torch.from_numpy(rng.random(n) < 0.2).to(dev)] = float("inf")
+    return [mu, sg, best, mem, cm, sel]
+
+
+def classes_bound(args):
+    """The least time for a class-axis pass: membership N*n bytes, mu,
+    sigma and selected 9n, best 4N, the cost matrix read and the scores
+    written 8Cn; EI_OPS per member pair with sigma > 0, 2 at sigma = 0,
+    a division and a select per (class, column)."""
+    mu, sg, best, mem, cm, _ = args
+    N, n = mem.shape
+    C = cm.shape[0]
+    pairs = int(mem.sum())
+    pairs_pos = int(mem[:, sg > 0].sum())
+    nbytes = N * n + 9 * n + 4 * N + 8 * C * n
+    ops = pairs_pos * EI_OPS + (pairs - pairs_pos) * 2 + 2 * C * n
+    return (pairs,) + bound_ms(nbytes, ops)
+
+
+def classes_check(name, args, ei_score, ref, timed=True):
+    """The class-axis kernel against its plain version on the same card
+    inputs (bit-equal), every row against the EIrate kernel run with that
+    cost row (bit-equal where the cost is finite, -1e30 where not), and at
+    C = 1 the first argmax against the EIrate kernel's; with ``timed``,
+    CUDA-event times of both and the bound."""
+    mu, sg, best, mem, cm, sel = args
+    got = ei_score.eirate_classes(*args)
+    want = ref.eirate_classes_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err == 0.0 and torch.equal(got, want),
+          f"eirate_classes {name}: kernel and plain version differ by {err}")
+    for c in range(cm.shape[0]):
+        finite = torch.isfinite(cm[c])
+        row = ei_score.eirate(mu, sg, best, mem,
+                              torch.where(finite, cm[c], 1.0), sel)
+        check(torch.equal(got[c][finite], row[finite])
+              and bool((got[c][~finite] == ref.NEG_LARGE).all()),
+              f"eirate_classes {name}: row {c} differs from eirate")
+    if cm.shape[0] == 1:
+        check(int(torch.argmax(got[0])) == int(torch.argmax(row)),
+              f"eirate_classes {name}: first argmax differs from eirate's")
+    N, n = mem.shape
+    rec = dict(case=name, C=cm.shape[0], N=N, n=n, max_abs_err=err,
+               rows_equal_eirate=True,
+               inf_costs=int((~torch.isfinite(cm)).sum()))
+    if not timed:
+        return rec
+    pairs, b_ms, b_by = classes_bound(args)
+    iters = 200 if n * N <= 10**6 else 20
+    rec.update(member_pairs=pairs,
+               ms=cuda_ms(lambda: ei_score.eirate_classes(*args), iters),
+               plain_ms=cuda_ms(lambda: ref.eirate_classes_ref(*args),
+                                max(iters // 10, 3)),
+               bound_ms=b_ms, bound_by=b_by)
+    return rec
+
+
+def classes_case(name, C, N, n, layout, rng, dev, ei_score, ref):
+    args = classes_inputs(N, n, layout, C, rng, dev)
+    rec = classes_check(name, args, ei_score, ref)
+    rec["membership"] = layout
+    if layout == "tie":
+        got = ei_score.eirate_classes(*args)
+        check(bool((got == got[:, :1]).all())
+              and all(int(torch.argmax(r)) == 0 for r in got),
+              "eirate_classes tie case: equal inputs must give equal rows")
     return rec
 
 
@@ -494,6 +613,187 @@ def churn_phase(seed, dev, ControlPlane, block_chol, draw, counters, ei_score,
         runs=runs, main_path_inputs=shard_cases)
 
 
+# ---- the elastic device plane ----------------------------------------------------
+
+def watched(DevPlaneEngine):
+    """``DevPlaneEngine`` plus what the phase reads and the engine does not
+    keep: the high-water mark of live models, the scoring passes that found
+    the pool empty (they launch nothing: ``choose_mdmt_batch``'s early-out)
+    and a copy of the inputs the class-axis kernel was given in the pass
+    with the most classes, taken again whenever the live pool has grown by
+    a tenth.  Observation only."""
+
+    class Watched(DevPlaneEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.live_high_water = 0
+            self.dry_passes = 0
+            self.kernel_inputs = None
+            self._captured_at = (0, 0)      # (classes, live models)
+            plane, batch = self.cp, self.cp.choose_mdmt_batch
+
+            def counted(rates, overheads, k, **kw):
+                dry = bool(plane.selected.all())
+                out = batch(rates, overheads, k, **kw)
+                self.dry_passes += dry
+                classes, live = len(rates), plane.num_models
+                if not dry and plane.scorer == "ops" and (
+                        classes > self._captured_at[0]
+                        or (classes == self._captured_at[0]
+                            and live > 1.1 * self._captured_at[1])):
+                    self._captured_at = (classes, live)
+                    mu, sd = plane.gp.posterior_sd()   # flushed: no launch
+                    r, o = (torch.from_numpy(np.asarray(a, np.float32))
+                            .to(plane.device) for a in (rates, overheads))
+                    self.kernel_inputs = [
+                        mu, sd, plane._best_t.clone(),
+                        plane._membership_t.clone(),
+                        plane._cost_t[None, :] / r[:, None] + o[:, None],
+                        plane._selected_t.clone()]
+                return out
+
+            plane.choose_mdmt_batch = counted
+
+        def _post_event(self, kind):
+            self.live_high_water = max(self.live_high_water,
+                                       self.cp.num_models)
+            super()._post_event(kind)
+
+    return Watched
+
+
+def trial_rows(res, fields=None):
+    rows = [dataclasses.astuple(t) for t in res.trials]
+    return rows if fields is None else [r[:fields] for r in rows]
+
+
+def devplane_phase(dev, counters, DevPlaneEngine, two_class_registry, stream,
+                   ei_score, ref):
+    """Runs (a)-(e) on the card and (a)'s prefix on the CPU; equal trials."""
+    Watched = watched(DevPlaneEngine)
+    trace = stream.device_churn_trace(**DEVPLANE_TRACE)
+    # the homogeneous fleet's joins come at its one rate; the same seeds
+    # give the same events otherwise
+    homog = stream.device_churn_trace(
+        **{**DEVPLANE_TRACE, "join_classes": (("fast", 16, 1.0),)})
+
+    def engine(device, speed=2.0, overhead=0.5, **kw):
+        # every run lays its index space out in DEVPLANE_SHARDS shard spans,
+        # the sharded scorer's layout: the layout is part of the tie-break
+        # order (fresh tenants tie exactly), so equal picks need equal spans
+        reg = two_class_registry(speed, overhead=overhead)
+        return Watched(reg.build_fleet(list(DEVPLANE_FLEET)), "mdmt", seed=0,
+                       registry=reg, launch_order="fastest",
+                       max_live_models=DEVPLANE_MAX_LIVE,
+                       num_shards=DEVPLANE_SHARDS, device=device, **kw)
+
+    def run(name, eng, tr, **kw):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = eng.run(tr, **kw)
+        if eng.cp.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = res.telemetry.summary()
+        return res, dict(
+            run=name, scorer=eng.cp.scorer, assign=eng.assign,
+            device=str(eng.cp.device), trials=len(res.trials),
+            policy_launches=res.policy_launches,
+            scoring_passes=eng._scoring_passes, dry_passes=eng.dry_passes,
+            mean_decision_ms_per_policy_launch=(
+                res.decision_seconds / max(res.policy_launches, 1) * 1e3),
+            mean_decision_ms_per_pass=(
+                res.decision_seconds / max(eng._scoring_passes, 1) * 1e3),
+            events=eng.event_index, live_models_high_water=eng.live_high_water,
+            devices_joined=s["devices_joined"], devices_left=s["devices_left"],
+            trials_preempted=s["trials_preempted"],
+            launches={k: getattr(mod, attr)
+                      for k, (mod, attr) in counters.items()},
+            wall_s=wall)
+
+    runs, results = {}, {}
+    eng_a = engine(dev)
+    results["a"], runs["a"] = run("a", eng_a, trace)
+    eng_b = engine(dev, scorer="sharded")
+    results["b"], runs["b"] = run("b", eng_b, trace)
+    results["c"], runs["c"] = run("c", engine(dev, 1.0, 0.0), homog)
+    results["d"], runs["d"] = run("d", engine(dev, 1.0, 0.0,
+                                             assign="sequential"), homog)
+
+    # (e): durable log + snapshots, a crash halfway, recovery, resume
+    work = ROOT / "build" / "chip_smoke" / "devplane"
+    shutil.rmtree(work, ignore_errors=True)
+    crash_at = eng_a.event_index // 2
+    eng_e = engine(dev, log=stream.EventLog(work / "log"),
+                   snapshot_root=str(work / "snap"),
+                   snapshot_every=DEVPLANE_SNAPSHOT_EVERY,
+                   fault=stream.FaultInjector(crash_at))
+    t0 = time.perf_counter()
+    try:
+        eng_e.run(trace)
+        crashed = False
+    except stream.SimulatedCrash:
+        crashed = True
+    eng_e.log.close()
+    check(crashed, f"devplane_churn (e): no crash at event {crash_at}")
+    log = stream.EventLog.load(work / "log")
+    rec_e, step = stream.recover(lambda: engine(dev), str(work / "snap"), log)
+    results["e"] = rec_e.resume()
+    torch.cuda.synchronize()
+    runs["e"] = dict(run="e", crash_at=crash_at, resumed_from=step,
+                     snapshots=len(list((work / "snap").glob("step_*"))),
+                     trials=len(results["e"].trials),
+                     wall_s=time.perf_counter() - t0)
+    shutil.rmtree(work, ignore_errors=True)
+
+    results["cpu"], runs["cpu"] = run("cpu", engine("cpu"), trace,
+                                      horizon=DEVPLANE_CPU_HORIZON)
+    runs["cpu"]["horizon"] = finite(DEVPLANE_CPU_HORIZON)
+
+    a = trial_rows(results["a"])
+    check(trial_rows(results["b"]) == a,
+          "devplane_churn: the sharded scorer's trials differ from (a)")
+    check(trial_rows(results["e"]) == a,
+          "devplane_churn: the recovered run's trials differ from (a)")
+    check(trial_rows(results["c"]) == trial_rows(results["d"]),
+          "devplane_churn: batched and sequential differ on the "
+          "homogeneous fleet")
+    # the twin stopped at its horizon: the launches before it (who, where,
+    # when) are (a)'s first ones, and (a) launched nothing else before it
+    cpu = trial_rows(results["cpu"], fields=6)
+    check(cpu == trial_rows(results["a"], fields=6)[:len(cpu)]
+          and all(t.start >= DEVPLANE_CPU_HORIZON
+                  for t in results["a"].trials[len(cpu):]) and cpu,
+          "devplane_churn: the CPU twin's trials differ from (a)")
+    for name, shards in (("a", 1), ("b", DEVPLANE_SHARDS), ("c", 1),
+                         ("d", 1)):
+        r = runs[name]
+        la = r["launches"]
+        want = shards * (r["scoring_passes"] - r["dry_passes"])
+        check(la["eirate_classes"] == want and la["eirate"] == 0
+              and la["eirate_topk"] == 0 and la["gp_readout"] > 0,
+              f"devplane_churn ({name}): launches {la} for "
+              f"{r['scoring_passes']} passes ({r['dry_passes']} dry)")
+    check(all(v == 0 for v in runs["cpu"]["launches"].values()),
+          "devplane_churn: the CPU twin launched a kernel")
+    ra = runs["a"]
+    check(ra["devices_joined"] > 0 and ra["devices_left"] > 0
+          and ra["trials_preempted"] > 0 and ra["live_models_high_water"]
+          >= 1000, f"devplane_churn (a): too little churn {ra}")
+    check(runs["d"]["scoring_passes"] > runs["c"]["scoring_passes"],
+          "devplane_churn: batched must take fewer passes than sequential")
+    check(eng_a.kernel_inputs is not None, "devplane_churn: no inputs kept")
+    main_case = classes_check("devplane_a", eng_a.kernel_inputs, ei_score,
+                              ref)
+    return runs, dict(
+        phase="devplane_churn", trace=DEVPLANE_TRACE,
+        fleet=DEVPLANE_FLEET, max_live_models=DEVPLANE_MAX_LIVE,
+        trials_equal={"b_a": True, "e_a": True, "c_d": True,
+                      "cpu_a": len(cpu)},
+        runs=runs, main_path_inputs=[main_case])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -506,7 +806,9 @@ def main() -> int:
     from repro_torch import _build
     from repro_torch.core import (ControlPlane, azure_problem, regret_curves,
                                   simulate, synthetic_matern_problem)
+    from repro_torch import stream
     from repro_torch.core.tenancy import _matern_block_chol, _matern_draw
+    from repro_torch.devplane import DevPlaneEngine, two_class_registry
     from repro_torch.kernels import ei_score, gp_readout, ops, ref
     from repro_torch.shardgp import ShardedScorer
 
@@ -538,17 +840,27 @@ def main() -> int:
         ("service_disjoint", 1000, 100_000, "disjoint"),
         ("service_dense", 1000, 100_000, "dense"),
         ("k_gt_n", 50, 3, "dense"))]
+    classes_cases = [classes_case(*c, rng, dev, ei_score, ref) for c in (
+        ("paper_disjoint", 2, 50, 2500, "disjoint"),
+        ("service_disjoint", CLASSES_C, 1000, 100_000, "disjoint"),
+        ("service_dense", CLASSES_C, 1000, 100_000, "dense"),
+        ("memory_gate", 2, 50, 2500, "gate"),
+        ("paper_tie", 3, 50, 2500, "tie"),
+        ("c1_rate1_overhead0", 1, 50, 2500, "c1"))]
     emit(dict(phase="kernels", tolerance=0.0,
               tolerance_reason="each kernel does its plain version's arithmetic "
               "step for step: no multiply-add contraction (-fmad=false), sums in "
               "ascending order, erf/erfc/exp in double rounded once, IEEE sqrt, "
-              "the same per-column EIrate code in both EIrate kernels, the same "
-              "lowest-index rule in every top-k; so both are held bit-equal, "
-              "ids included",
-              eirate=ei_cases, gp_readout=ro_cases, eirate_topk=topk_cases))
+              "the same per-column tenant sum in all three EIrate kernels, the "
+              "same lowest-index rule in every top-k; so both are held "
+              "bit-equal, ids included, and every class row bit-equal to the "
+              "EIrate kernel with that cost row",
+              eirate=ei_cases, gp_readout=ro_cases, eirate_topk=topk_cases,
+              eirate_classes=classes_cases))
 
     counters = {"eirate": (ei_score, "launches"),
                 "eirate_topk": (ei_score, "topk_launches"),
+                "eirate_classes": (ei_score, "classes_launches"),
                 "gp_readout": (gp_readout, "launches")}
     fig5 = synthetic_matern_problem(50, 50, seed=0)
     res, rec = episode("episode_fig5", fig5, "mdmt", 4, FIG5_HORIZON, counters,
@@ -583,18 +895,28 @@ def main() -> int:
     emit(rec)
     main_launches["eirate_topk"] = runs["a"]["launches"]["eirate_topk"]
 
+    dp_runs, dp = devplane_phase(dev, counters, DevPlaneEngine,
+                                 two_class_registry, stream, ei_score, ref)
+    emit(dp)
+    main_launches["eirate_classes"] = dp_runs["a"]["launches"]["eirate_classes"]
+
     # Fig-5 shapes for the first two; the top-k kernel on the inputs the
-    # churn trace's run (a) gave one shard
+    # churn trace's run (a) gave one shard, the class-axis kernel on inputs
+    # devplane_churn's run (a) gave it
     head = {"eirate": ei_cases[0], "gp_readout": ro_cases[2],
-            "eirate_topk": rec["main_path_inputs"][0]}
+            "eirate_topk": rec["main_path_inputs"][0],
+            "eirate_classes": dp["main_path_inputs"][0]}
     sources = {"eirate": ("src/repro_torch/kernels/csrc/ei_score.cu",
                           "src/repro/kernels/ei_score.py:185"),
                "gp_readout": ("src/repro_torch/kernels/csrc/gp_readout.cu",
                               "src/repro/kernels/gp_readout.py:85"),
                "eirate_topk": ("src/repro_torch/kernels/csrc/ei_topk.cu",
-                               "src/repro/kernels/ei_score.py:235")}
+                               "src/repro/kernels/ei_score.py:235"),
+               "eirate_classes": ("src/repro_torch/kernels/csrc/ei_classes.cu",
+                                  "src/repro/kernels/ei_score.py:301")}
     cases = {"eirate": ei_cases, "gp_readout": ro_cases,
-             "eirate_topk": topk_cases + rec["main_path_inputs"]}
+             "eirate_topk": topk_cases + rec["main_path_inputs"],
+             "eirate_classes": classes_cases + dp["main_path_inputs"]}
     emit({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1], launches=main_launches[name],
@@ -602,7 +924,7 @@ def main() -> int:
         ms=head[name]["ms"], plain_ms=head[name]["plain_ms"],
         bound_ms=head[name]["bound_ms"], bound_by=head[name]["bound_by"],
         library_ms=None, shape_of_times=head[name]["case"])
-        for name in ("eirate", "gp_readout", "eirate_topk")]})
+        for name in ("eirate", "gp_readout", "eirate_topk", "eirate_classes")]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -2,7 +2,9 @@
 
   gp.py            zero-noise GP posterior (masked one-shot, incremental,
                    block-diagonal engines)
-  ei.py            tau / EI / multi-tenant EI / EIrate (eqs. 3-6, Lemma 1)
+  ei.py            tau / EI / multi-tenant EI / EIrate (eqs. 3-6, Lemma 1),
+                   and its class axis (the elastic device plane)
+  fleet.py         device slices: health, classes, join / leave / preempt
   miu.py           Maximum Incremental Uncertainty (Section 5.1)
   tenancy.py       problem instances (Azure / DeepLearning / Matérn synthetic)
   control_plane.py the per-event decision core (GP fold + EIrate pick),
@@ -21,13 +23,16 @@ from .control_plane import (  # noqa: F401
 )
 from .ei import (  # noqa: F401
     choose_next,
+    choose_topk_classes,
     ei_matrix,
     ei_total,
+    eirate_class_scores,
     eirate_scores,
     eirate_topk_fused,
     expected_improvement,
     single_tenant_ei_scores,
     tau,
+    topk_rows_padded,
 )
 from .gp import BlockIncrementalGP, IncrementalGP, make_gp, posterior_masked  # noqa: F401
 from .miu import (  # noqa: F401

@@ -39,9 +39,11 @@ Scorers:
 
 The masks, costs and incumbents are kept twice: as numpy arrays on the host
 for the event bookkeeping and as tensors on ``device`` for scoring, with
-the same float32 casts as the reference's device mirrors.  Tracing,
-forensics and the batched multi-class decision wait for later slices of
-the port.
+the same float32 casts as the reference's device mirrors.
+:meth:`choose_mdmt_batch` is the elastic device plane's scoring pass: one
+class-axis EIrate launch (``kernels.ops.eirate_classes``) and a stable
+per-class top-k.  A ``repro_torch.obs.Tracer`` (:meth:`set_tracer`) opens
+the reference's spans; forensics waits for the observability slice.
 """
 
 from __future__ import annotations
@@ -54,10 +56,11 @@ import torch
 
 from ..device import resolve
 from ..kernels import ops
+from ..obs import NULL_TRACER
 from ..shardgp import compact as _compact
 from ..shardgp.layout import BlockPlacement, ShardLayout
 from ..shardgp.score import ShardedScorer
-from .ei import single_tenant_ei_scores
+from .ei import single_tenant_ei_scores, topk_rows_padded
 from .gp import DEFAULT_JITTER, BlockIncrementalGP, make_gp
 from .tenancy import Problem
 
@@ -185,6 +188,7 @@ class ControlPlane:
         self.gp = BlockIncrementalGP.empty(jitter, device=self.device)
         self.gp.ensure_capacity(cap_n)
         self.rr_pointer = 0
+        self.tracer = NULL_TRACER
         self._rebuild_mirrors()
 
     @classmethod
@@ -247,6 +251,7 @@ class ControlPlane:
         cp._no_obs_floor = float(no_obs_floor)
         cp.gp = gp
         cp.rr_pointer = rr_pointer
+        cp.tracer = NULL_TRACER
         cp._rebuild_mirrors()
         return cp
 
@@ -575,8 +580,18 @@ class ControlPlane:
                 self._sharded = ShardedScorer(
                     num_shards, topk=self._sharded.topk,
                     kernel=self._sharded.kernel, device=self._mesh_device)
+                self._sharded.tracer = self.tracer
         self.load_state(arrays, meta)
         return remap
+
+    def set_tracer(self, tracer) -> None:
+        """Install a ``repro_torch.obs.Tracer`` on the decision path (and on
+        the sharded scorer, which opens its own pad/dispatch spans).
+        Tracing is observation-only: spans never change a decision and never
+        enter :meth:`state_snapshot`."""
+        self.tracer = tracer
+        if self._sharded is not None:
+            self._sharded.tracer = tracer
 
     def capacity_stats(self) -> dict:
         """Host-side accounting of the posterior and the index space: GP
@@ -616,7 +631,8 @@ class ControlPlane:
                              f"{model}; poisoned losses must not reach the "
                              f"GP (use record_failure)")
         self.observed[model] = True
-        self.gp.observe(model, z)
+        with self.tracer.span("gp_fold", model=model):
+            self.gp.observe(model, z)
         improved = False
         for u in np.nonzero(self.membership[:, model])[0]:
             if z > self.best[u] or not np.isfinite(self.best[u]):
@@ -627,43 +643,94 @@ class ControlPlane:
 
     # ---- policy decisions --------------------------------------------------
 
+    def _posterior_host(self):
+        """(mu, sd) on the host for the sharded scorer: the block engine's
+        cache is there, and float32 sqrt is correctly rounded there as on
+        the device, so no round trip."""
+        if hasattr(self.gp, "posterior_host"):
+            mu, var = self.gp.posterior_host()
+            return mu, np.sqrt(var)
+        return self.tracer.sync(self.gp.posterior_sd())
+
     def choose_mdmt(self, device_speed: float = 1.0) -> tuple[int, int] | None:
         if self.selected.all():
             return None
+        tr = self.tracer
         if self.scorer == "sharded":
-            # the block engine's cache is on the host, and float32 sqrt is
-            # correctly rounded there as on the device: no round trip
-            if hasattr(self.gp, "posterior_host"):
-                mu, var = self.gp.posterior_host()
-                sd = np.sqrt(var)
-            else:
-                mu, sd = self.gp.posterior_sd()
-            idx, score = self._sharded.decide(mu, sd, self._best_t,
-                                              self.selected, device_speed)
+            with tr.span("posterior", scorer="sharded"):
+                mu, sd = self._posterior_host()
+            with tr.span("score", scorer="sharded"):
+                idx, score = self._sharded.decide(mu, sd, self._best_t,
+                                                  self.selected, device_speed)
             if not np.isfinite(score) or score <= -1e29:
                 return None
             return idx, -1
-        mu, sd = self.gp.posterior_sd()
+        with tr.span("posterior", scorer=self.scorer):
+            mu, sd = tr.sync(self.gp.posterior_sd())
         cost = self._cost_t
         if device_speed != 1.0:
             # by a tensor: CUDA divides by a host scalar through its
             # reciprocal, which would round differently from the CPU
             cost = cost / torch.full_like(cost, device_speed)
-        scores = ops.eirate(mu, sd, self._best_t, self._membership_t, cost,
-                            self._selected_t)
-        idx = int(torch.argmax(scores))    # first maximum, as jnp.argmax
-        score = float(scores[idx])
+        with tr.span("score", scorer=self.scorer):
+            scores = ops.eirate(mu, sd, self._best_t, self._membership_t,
+                                cost, self._selected_t)
+            idx = int(torch.argmax(scores))    # first maximum, as jnp.argmax
+            score = float(scores[idx])
         if not np.isfinite(score) or score <= -1e29:
             return None
         return idx, -1
 
     def choose_mdmt_batch(self, rates, overheads, k: int, *,
-                          class_names=None):
-        """The per-device-class top-k of a joint assignment: needs the
-        class-axis EIrate kernel, ported with the elastic device plane."""
-        raise NotImplementedError(
-            "choose_mdmt_batch arrives with the elastic-device-plane slice of "
-            "the port (ROADMAP.md), with the class-axis EIrate kernel")
+                          class_names=None) -> tuple[np.ndarray, np.ndarray]:
+        """One scoring pass for a k-device joint assignment (DESIGN.md §11).
+
+        ``rates``/``overheads`` carry one entry per device class present in
+        the batch; class c's cost row is ``cost / rates[c] + overheads[c]``
+        in float32.  Returns per-class EIrate top-k over the unselected pool
+        as numpy ``(values (C, k), global ids (C, k))``, equal values in
+        ascending id; the greedy device<->model solver
+        (``devplane.assign``) consumes them.  With a single class at rate 1
+        and overhead 0, row 0's head is bit-identical to
+        :meth:`choose_mdmt`'s pick (the ``/ 1`` and ``+ 0`` are IEEE
+        identities, and the class kernel shares the EIrate kernel's tenant
+        sum): the batched == sequential contract.
+
+        ``"ops"``: one launch of the class-axis EIrate kernel
+        (``ops.eirate_classes``; -1e30 at selected models) and a stable
+        per-row top-k.  ``"sharded"``: ``ShardedScorer.decide_topk_classes``.
+        ``class_names`` labels the reference's per-class forensics records
+        and never affects scoring; forensics waits for the observability
+        slice of the port."""
+        rates = np.asarray(rates, np.float32)
+        overheads = np.asarray(overheads, np.float32)
+        if self.selected.all():
+            # same early-out as choose_mdmt: an empty pool must not pay a
+            # scoring pass (dry passes dominate idle stretches)
+            return (np.full((rates.shape[0], k), -np.inf, np.float32),
+                    np.zeros((rates.shape[0], k), np.int64))
+        tr = self.tracer
+        if self.scorer == "sharded":
+            with tr.span("posterior", scorer="sharded"):
+                mu, sd = self._posterior_host()
+            with tr.span("score_topk", scorer="sharded", k=k):
+                v, g = self._sharded.decide_topk_classes(
+                    mu, sd, self._best_t, self.selected, rates, overheads,
+                    k=k)
+                return v.cpu().numpy(), g.cpu().numpy()
+        with tr.span("posterior", scorer=self.scorer):
+            mu, sd = tr.sync(self.gp.posterior_sd())
+        dev = self.device
+        # by tensors: CUDA divides by a host scalar through its reciprocal
+        rates_t = torch.from_numpy(rates).to(dev)
+        over_t = torch.from_numpy(overheads).to(dev)
+        cm = self._cost_t[None, :] / rates_t[:, None] + over_t[:, None]
+        with tr.span("score_topk", scorer=self.scorer, k=k):
+            scores = ops.eirate_classes(mu, sd, self._best_t,
+                                        self._membership_t, cm,
+                                        self._selected_t)
+            v, i = topk_rows_padded(scores, k)
+            return v.cpu().numpy(), i.cpu().numpy()
 
     def _users_with_work(self) -> np.ndarray:
         has_work = (self.membership & ~self.selected[None, :]).any(axis=1)

@@ -60,6 +60,44 @@ def eirate_topk_fused(mu, sigma, best_per_user, membership, cost, selected,
     return topk_first(scores, min(k, scores.shape[0]))
 
 
+def eirate_class_scores(mu, sigma, best_per_user, membership, cost_matrix,
+                        selected):
+    """(C, n) EIrate over (device class x model), the 2-D generalization of
+    eqs. (5)-(6) the elastic device plane scores: the tenant EI sum once,
+    divided by every class's cost row.  A non-finite cost (the registry's
+    memory gate) is a hard exclusion (-inf), not the 0 a division by +inf
+    would give; selected models score -inf."""
+    total = ei_total(mu, sigma, best_per_user, membership)
+    scores = torch.where(torch.isfinite(cost_matrix),
+                         ftz(total[None, :] / cost_matrix), NEG_INF)
+    return torch.where(selected[None, :], NEG_INF, scores)
+
+
+def topk_rows_padded(scores, k: int):
+    """Per-row top-k of a (C, n) score matrix as ``(values, ids)``, equal
+    values in ascending id (one stable sort, ``topk_first``), padded with
+    (-inf, id 0) when n < k so the shape is always (C, k)."""
+    kk = min(k, scores.shape[1])
+    v, i = topk_first(scores, kk)
+    if kk < k:
+        C, pad = scores.shape[0], k - kk
+        v = torch.cat([v, torch.full((C, pad), NEG_INF, dtype=v.dtype,
+                                     device=v.device)], dim=1)
+        i = torch.cat([i, torch.zeros((C, pad), dtype=i.dtype,
+                                      device=i.device)], dim=1)
+    return v, i
+
+
+def choose_topk_classes(mu, sigma, best_per_user, membership, cost_matrix,
+                        selected, *, k: int):
+    """Per-class EIrate top-k: ``(values (C, k), ids (C, k))``.  Row c's
+    order is the sequential argmax-with-masking order (lowest id at equal
+    value), which the batched == sequential contract leans on."""
+    scores = eirate_class_scores(mu, sigma, best_per_user, membership,
+                                 cost_matrix, selected)
+    return topk_rows_padded(scores, k)
+
+
 def single_tenant_ei_scores(mu, sigma, best, member_row, selected):
     """Per-tenant plain GP-EI scores (baselines: each user runs own GP-EI).
 

@@ -1,7 +1,7 @@
-// The per-column EIrate body shared by the EIrate kernel (ei_score.cu) and
-// the EIrate top-k kernel (ei_topk.cu): both compute a column's score with
-// this one function, built with the same flags, so the top-k kernel ranks
-// the very floats the EIrate kernel writes.
+// The per-column EIrate body shared by the EIrate kernel (ei_score.cu), the
+// EIrate top-k kernel (ei_topk.cu) and the class-axis EIrate kernel
+// (ei_classes.cu): each computes a column's tenant sum with ei_total_column,
+// built with the same flags, so all three rank the very same floats.
 //
 //   EI_i(x)  = sigma(x) * tau((mu(x) - best_i) / sigma(x)),  tau(u) = u Phi(u) + phi(u)
 //            = max(mu(x) - best_i, 0)                         when sigma(x) == 0
@@ -67,13 +67,12 @@ __device__ __forceinline__ float tau(float u) {
   return ftz(ftz(u * ndtr(u)) + pdf);
 }
 
-// The EIrate score of column x of an (N, n) problem.
-__device__ __forceinline__ float eirate_column(
+// The tenant sum of column x of an (N, n) problem: sum_i member[i, x] *
+// EI_i(x), tenants in ascending order, non-members skipped.
+__device__ __forceinline__ float ei_total_column(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ best,
-    const unsigned char* __restrict__ membership,
-    const float* __restrict__ cost, const unsigned char* __restrict__ selected,
-    int N, int n, int x) {
+    const unsigned char* __restrict__ membership, int N, int n, int x) {
   const float m = mu[x];
   const float sg = sigma[x];
   const bool positive = sg > 0.0f;
@@ -90,6 +89,17 @@ __device__ __forceinline__ float eirate_column(
     }
     total = total + e;
   }
+  return total;
+}
+
+// The EIrate score of column x of an (N, n) problem.
+__device__ __forceinline__ float eirate_column(
+    const float* __restrict__ mu, const float* __restrict__ sigma,
+    const float* __restrict__ best,
+    const unsigned char* __restrict__ membership,
+    const float* __restrict__ cost, const unsigned char* __restrict__ selected,
+    int N, int n, int x) {
+  const float total = ei_total_column(mu, sigma, best, membership, N, n, x);
   return selected[x] ? kSelected : ftz(total / cost[x]);
 }
 

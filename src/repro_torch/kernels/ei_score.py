@@ -1,4 +1,4 @@
-"""Multi-tenant EIrate scoring: the wrappers of the two CUDA kernels.
+"""Multi-tenant EIrate scoring: the wrappers of the three CUDA kernels.
 
 ``eirate`` is the counterpart of ``repro.kernels.ei_score.eirate_pallas``:
 the kernel (``csrc/ei_score.cu``) runs one thread per model column over
@@ -6,8 +6,12 @@ uint8 membership; its plain version is ``ref.eirate_ref``.  ``eirate_topk``
 is the counterpart of ``eirate_topk_pallas``: the kernel
 (``csrc/ei_topk.cu``) scores each block of columns with the same per-column
 code and keeps the block's top-k; its plain version is
-``ref.eirate_topk_ref``.  ``ops`` sends CPU tensors to the plain versions
-and CUDA tensors here, where they launch a kernel or raise.
+``ref.eirate_topk_ref``.  ``eirate_classes`` is the counterpart of
+``eirate_classes_pallas``: the kernel (``csrc/ei_classes.cu``) sums the
+tenant EI of each column once and divides it by every device class's cost
+row; its plain version is ``ref.eirate_classes_ref``.  ``ops`` sends CPU
+tensors to the plain versions and CUDA tensors here, where they launch a
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from . import ref
 launches = 0
 #: launches of the EIrate top-k kernel since the last reset
 topk_launches = 0
+#: launches of the class-axis EIrate kernel since the last reset
+classes_launches = 0
 
 _FLOATS = ("mu", "sigma", "best", "cost")
 _BYTES = (torch.bool, torch.uint8)
@@ -47,17 +53,27 @@ def _topk_launcher():
     return fn
 
 
+@functools.cache
+def _classes_launcher():
+    from .. import _build
+    fn = _build.load("ei_classes").eirate_classes_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(kernel, mu, sigma, best, membership, cost, selected):
-    """Device, shape, type and contiguity checks shared by both kernels;
-    returns (N, n)."""
+    """Device, shape, type and contiguity checks shared by the kernels;
+    ``cost`` is (n,), or (C, n) for the class-axis kernel.  Returns (N, n)."""
     args = dict(mu=mu, sigma=sigma, best=best, membership=membership,
                 cost=cost, selected=selected)
     dev = mu.device
     if dev.type != "cuda":
         raise ValueError(f"the {kernel} kernel needs CUDA tensors, got {dev}")
     n, N = mu.shape[0], best.shape[0]
+    cost_shape = (cost.shape[0], n) if kernel == "eirate_classes" else (n,)
     shapes = dict(mu=(n,), sigma=(n,), best=(N,), membership=(N, n),
-                  cost=(n,), selected=(n,))
+                  cost=cost_shape, selected=(n,))
     for name, t in args.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, mu on {dev}")
@@ -130,3 +146,36 @@ def eirate_topk(mu, sigma, best, membership, cost, selected, *, k: int = 4):
                 f"eirate_topk kernel launch failed: cudaError {err}")
         topk_launches += 1
     return ref.merge_block_topk(topv, topi, n, k)
+
+
+def eirate_classes(mu, sigma, best, membership, cost_matrix,
+                   selected) -> torch.Tensor:
+    """(C, n) class-axis EIrate scores from the kernel: row c is the tenant
+    EI sum over cost row c; -1e30 at selected models and where the cost is
+    not finite (the registry's memory gate).
+
+    Inputs as :func:`eirate`, with ``cost_matrix`` (C, n) float32."""
+    global classes_launches
+    if cost_matrix.dim() != 2:
+        raise ValueError(f"cost_matrix must be (C, n), got shape "
+                         f"{tuple(cost_matrix.shape)}")
+    N, n = _check("eirate_classes", mu, sigma, best, membership, cost_matrix,
+                  selected)
+    C = cost_matrix.shape[0]
+    if C * n >= 2**31:
+        raise ValueError(f"(C, n) = ({C}, {n}) exceeds the kernel's int sizes")
+    dev = mu.device
+    out = torch.empty((C, n), dtype=torch.float32, device=dev)
+    if n == 0 or C == 0:
+        return out
+    fn = _classes_launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(mu.data_ptr(), sigma.data_ptr(), best.data_ptr(),
+                 membership.data_ptr(), cost_matrix.data_ptr(),
+                 selected.data_ptr(), out.data_ptr(), N, n, C, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"eirate_classes kernel launch failed: cudaError {err}")
+    classes_launches += 1
+    return out

@@ -27,6 +27,17 @@ def eirate_topk(mu, sigma, best, membership, cost, selected, *, k: int = 4):
                                 k=k)
 
 
+def eirate_classes(mu, sigma, best, membership, cost_matrix, selected):
+    """(C, n) class-axis EIrate scores (``cost_matrix`` is (C, n)): the
+    tenant EI sum once, divided by every class's cost row; -1e30 at selected
+    models and non-finite costs."""
+    if mu.device.type == "cpu":
+        return ref.eirate_classes_ref(mu, sigma, best, membership,
+                                      cost_matrix, selected)
+    return ei_score.eirate_classes(mu, sigma, best, membership, cost_matrix,
+                                   selected)
+
+
 def gp_readout(W, alpha, mu0, k_diag, *, emit_sd=False):
     """(mu, var) over the k rows of W (k, n), or (mu, sd) with ``emit_sd``."""
     if W.device.type == "cpu":

@@ -63,8 +63,9 @@ def expected_improvement(mu, sigma, best):
                        torch.clamp_min(diff, 0.0))
 
 
-def eirate_ref(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
-    """(n,) EIrate scores; -1e30 at selected models (the kernel's epilogue)."""
+def ei_total_ref(mu, sigma, best, membership) -> torch.Tensor:
+    """(n,) tenant EI sum of every column, tenants in ascending order (the
+    kernels' ``ei::ei_total_column``)."""
     mu = mu.float()
     ei = expected_improvement(mu[None, :], sigma.float()[None, :],
                               best.float()[:, None])
@@ -72,9 +73,25 @@ def eirate_ref(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
     total = torch.zeros_like(mu)
     for i in range(ei.shape[0]):          # ascending tenants, as the kernel
         total = total + ei[i]
-    scores = ftz(total / cost.float())
+    return total
+
+
+def eirate_ref(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
+    """(n,) EIrate scores; -1e30 at selected models (the kernel's epilogue)."""
+    scores = ftz(ei_total_ref(mu, sigma, best, membership) / cost.float())
     return torch.where(selected.bool(), torch.full_like(scores, NEG_LARGE),
                        scores)
+
+
+def eirate_classes_ref(mu, sigma, best, membership, cost_matrix,
+                       selected) -> torch.Tensor:
+    """(C, n) class-axis EIrate scores: the tenant EI sum once, divided by
+    each class's cost row; -1e30 at selected models and where the cost is
+    not finite (a memory-gated model is excluded, not scored 0)."""
+    cm = cost_matrix.float()
+    scores = ftz(ei_total_ref(mu, sigma, best, membership)[None, :] / cm)
+    drop = selected.bool()[None, :] | ~torch.isfinite(cm)
+    return torch.where(drop, torch.full_like(scores, NEG_LARGE), scores)
 
 
 #: model columns per block of the top-k kernel (the TPU kernel's bn)
@@ -82,12 +99,12 @@ BLOCK_MODELS = 256
 
 
 def topk_first(values: torch.Tensor, k: int):
-    """(values, positions) of the k largest entries of a 1-D tensor, equal
-    values in ascending position: the order of ``lax.top_k``.  A stable
-    descending sort; ``torch.topk`` promises no order among equal values,
-    so no decision path uses it."""
-    v, pos = torch.sort(values, descending=True, stable=True)
-    return v[:k], pos[:k]
+    """(values, positions) of the k largest entries along the last axis,
+    equal values in ascending position: the order of ``lax.top_k``.  A
+    stable descending sort (one for every row of a matrix); ``torch.topk``
+    promises no order among equal values, so no decision path uses it."""
+    v, pos = torch.sort(values, dim=-1, descending=True, stable=True)
+    return v[..., :k], pos[..., :k]
 
 
 def merge_block_topk(topv, topi, n: int, k: int):

@@ -43,6 +43,11 @@ version on the CPU (``kernels.ops``):
 
 The reference's ``"xla"`` route has no counterpart: on the card every
 route is a kernel.
+
+The elastic device plane's per-class decision
+(:meth:`ShardedScorer.decide_topk_classes`) takes the class-axis EIrate
+kernel (``csrc/ei_classes.cu``) on each shard's slice, whatever the route:
+the reference has no fused classes + top-k kernel either.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 from ..kernels import ops
 from ..kernels.ref import topk_first
 from ..launch.mesh import make_scoring_mesh
+from ..obs import NULL_TRACER
 
 SCORE_KERNELS = ("eirate_topk", "eirate")
 
@@ -66,22 +72,26 @@ _NEG_INF = float("-inf")
 
 
 def _global_pick(allv: torch.Tensor, allg: torch.Tensor, k: int):
-    """Top-k of the gathered (S*k,) candidates, whose order is (shard,
-    rank)-major, ascending global id at equal value: the lowest global id
-    wins ties, as the unsharded argmax."""
+    """Top-k of the gathered (..., S*k) candidates (per row for classes),
+    whose order is (shard, rank)-major, ascending global id at equal value:
+    the lowest global id wins ties, as the unsharded argmax."""
     v, pos = topk_first(allv, k)
-    return v, allg[pos]
+    return v, allg.gather(-1, pos)
 
 
 def _local_topk(scores: torch.Tensor, k: int, base: int):
-    """A slice smaller than k yields what it has, padded with (-inf, 0)."""
-    kk = min(k, scores.shape[0])
+    """Top-k along the last axis of one shard's scores (a vector, or one row
+    per class) as (values, global ids).  A slice smaller than k yields what
+    it has, padded with (-inf, 0)."""
+    kk = min(k, scores.shape[-1])
     v, li = topk_first(scores, kk)
     g = li + base
     if kk < k:
-        v = torch.cat([v, torch.full((k - kk,), _NEG_INF, dtype=v.dtype,
-                                     device=v.device)])
-        g = torch.cat([g, torch.zeros(k - kk, dtype=g.dtype, device=g.device)])
+        pad = scores.shape[:-1] + (k - kk,)
+        v = torch.cat([v, torch.full(pad, _NEG_INF, dtype=v.dtype,
+                                     device=v.device)], dim=-1)
+        g = torch.cat([g, torch.zeros(pad, dtype=g.dtype, device=g.device)],
+                      dim=-1)
     return v, g
 
 
@@ -112,6 +122,7 @@ class ShardedScorer:
         self.num_shards = len(self.mesh)
         self.topk = max(1, topk)
         self.kernel = kernel
+        self.tracer = NULL_TRACER   # installed by ControlPlane.set_tracer
         self._member: list[torch.Tensor] | None = None   # (N_cap, C) per shard
         self._cost: list[torch.Tensor] | None = None     # (C,) per shard
         self._cap = 0
@@ -176,8 +187,8 @@ class ShardedScorer:
 
     def _gather_pick(self, cands, k: int):
         home = self.mesh[0]
-        allv = torch.cat([v.to(home) for v, _ in cands])
-        allg = torch.cat([g.to(home) for _, g in cands])
+        allv = torch.cat([v.to(home) for v, _ in cands], dim=-1)
+        allg = torch.cat([g.to(home) for _, g in cands], dim=-1)
         return _global_pick(allv, allg, k)
 
     def _require_refresh(self) -> None:
@@ -190,16 +201,26 @@ class ShardedScorer:
         """(values (k,), global ids (k,)) of the global EIrate top-k, as
         tensors on ``mesh[0]``."""
         self._require_refresh()
-        mus = self._per_shard(self._pad(mu, 0.0, np.float32))
-        sds = self._per_shard(self._pad(sd, 0.0, np.float32))
-        sels = self._per_shard(self._pad(selected, True, bool))
-        bests = self._replicated(best)
-        costs = self._costs(speed)
-        c = self._cap // self.num_shards
-        cands = [_score_local(mus[s], sds[s], bests[s], self._member[s],
-                              costs[s], sels[s], self.kernel, self.topk, s * c)
-                 for s in range(self.num_shards)]
-        return self._gather_pick(cands, self.topk)
+        tr = self.tracer
+        with tr.span("pad_upload"):
+            mus, sds, sels = self._upload(mu, sd, selected)
+            bests = self._replicated(best)
+        with tr.span("shard_decide", shards=self.num_shards,
+                     kernel=self.kernel, k=self.topk):
+            costs = self._costs(speed)
+            c = self._cap // self.num_shards
+            cands = [_score_local(mus[s], sds[s], bests[s], self._member[s],
+                                  costs[s], sels[s], self.kernel, self.topk,
+                                  s * c)
+                     for s in range(self.num_shards)]
+            return tr.sync(self._gather_pick(cands, self.topk))
+
+    def _upload(self, mu, sd, selected):
+        """The per-decision inputs padded to the capacity, one slice per
+        shard on its device."""
+        return (self._per_shard(self._pad(mu, 0.0, np.float32)),
+                self._per_shard(self._pad(sd, 0.0, np.float32)),
+                self._per_shard(self._pad(selected, True, bool)))
 
     def decide(self, mu, sd, best, selected,
                speed: float = 1.0) -> tuple[int, float]:
@@ -211,12 +232,38 @@ class ShardedScorer:
 
     def decide_topk_classes(self, mu, sd, best, selected, rates, overheads,
                             k: int | None = None):
-        """Per-device-class top-k: needs the class-axis EIrate kernel, which
-        arrives with the elastic-device-plane slice of the port."""
-        raise NotImplementedError(
-            "decide_topk_classes needs the class-axis EIrate kernel "
-            "(eirate_classes_pallas), ported with the elastic device plane "
-            "slice")
+        """Per-device-class global EIrate top-k for the joint batched
+        assignment: ``(values (C, k), global ids (C, k))`` as tensors on
+        ``mesh[0]``, one row per class in ``rates``/``overheads`` (cost row
+        c = cost / rate_c + overhead_c, float32).  ``k`` defaults to
+        ``self.topk``; a k-device batch passes k = batch size.
+
+        Per shard: the cost matrix of its slice, one class-axis EIrate
+        launch (``ops.eirate_classes``) and a stable local top-k per row.
+        The S*k candidates of each class are copied to ``mesh[0]`` in
+        (shard, rank) order and a stable sort per row picks the lowest
+        global id among equal values, as the unsharded per-row top-k."""
+        self._require_refresh()
+        k = self.topk if k is None else max(1, k)
+        tr = self.tracer
+        with tr.span("pad_upload"):
+            mus, sds, sels = self._upload(mu, sd, selected)
+            bests = self._replicated(best)
+            rates = self._replicated(np.asarray(rates, np.float32))
+            overs = self._replicated(np.asarray(overheads, np.float32))
+        with tr.span("shard_decide", shards=self.num_shards,
+                     kernel="eirate_classes", k=k):
+            c = self._cap // self.num_shards
+            cands = []
+            for s in range(self.num_shards):
+                # by tensors: CUDA divides by a host scalar through its
+                # reciprocal
+                cm = (self._cost[s][None, :] / rates[s][:, None]
+                      + overs[s][:, None])
+                scores = ops.eirate_classes(mus[s], sds[s], bests[s],
+                                            self._member[s], cm, sels[s])
+                cands.append(_local_topk(scores, k, s * c))
+            return tr.sync(self._gather_pick(cands, k))
 
     def readout_decide_topk(self, W, alpha, mu0, kdiag, best, selected,
                             speed: float = 1.0):

@@ -243,8 +243,10 @@ def test_plane_guards():
     prob = T.synthetic_matern_problem(2, 4, seed=0)
     sharded = T.ControlPlane.from_problem(prob, scorer="sharded", device="cpu")
     assert sharded.scorer == "sharded" and sharded.choose_mdmt() == (0, -1)
-    with pytest.raises(NotImplementedError, match="slice"):
-        sharded.choose_mdmt_batch([1.0], [0.0], 2)
+    # the batched pass: one class at rate 1, overhead 0 heads with the pick
+    v, g = sharded.choose_mdmt_batch([1.0, 2.0], [0.0, 0.5], 2)
+    assert v.shape == g.shape == (2, 2) and int(g[0, 0]) == 0
+    assert (v[:, 0] >= v[:, 1]).all() and np.isfinite(v).all()
     with pytest.raises(ValueError):
         T.ControlPlane.from_problem(prob, scorer="fused", device="cpu")
     plane = T.ControlPlane.from_problem(prob, device="cpu")

@@ -18,7 +18,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import ControlPlane, simulate, synthetic_matern_problem  # noqa: E402
 from repro_torch.core.tenancy import _matern_block_chol  # noqa: E402
+from repro_torch.devplane import DevPlaneEngine, two_class_registry  # noqa: E402
 from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
+from repro_torch.stream import device_churn_trace  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +73,75 @@ def test_eirate_topk_kernel_matches_plain(cuda, rng, n, N, k, layout):
         assert i.tolist() == list(range(k))
     live = v > -1e29
     assert torch.equal(ops.eirate(*args)[i[live].long()], v[live])
+
+
+@pytest.mark.parametrize("n,N,C,layout", [
+    (2500, 50, 2, "random"), (513, 100, 4, "random"), (17, 3, 1, "random"),
+    (600, 3, 3, "tie"), (300, 8, 3, "gate"),
+])
+def test_eirate_classes_kernel_matches_plain_and_eirate_rows(
+        cuda, rng, n, N, C, layout):
+    mu, sg, best, mem, cost, sel = _ei_inputs(rng, n, N, cuda)
+    rates = torch.from_numpy(rng.uniform(0.5, 4.0, C).astype(np.float32)).to(cuda)
+    cm = cost[None, :] / rates[:, None] + 0.25
+    if layout == "tie":
+        for t, fill in zip((mu, sg, best, mem, sel), (0.0, 1.0, 0.0, True, False)):
+            t.fill_(fill)
+        cm.fill_(1.0)
+    if layout == "gate":
+        cm[1, ::3] = float("inf")
+    before = (ei_score.classes_launches, ei_score.launches)
+    got = ops.eirate_classes(mu, sg, best, mem, cm, sel)
+    torch.cuda.synchronize()
+    assert (ei_score.classes_launches, ei_score.launches) == \
+           (before[0] + 1, before[1])
+    torch.testing.assert_close(got, ref.eirate_classes_ref(
+        mu, sg, best, mem, cm, sel), atol=0, rtol=0)
+    for c in range(C):
+        finite = torch.isfinite(cm[c])
+        row = ops.eirate(mu, sg, best, mem, torch.where(finite, cm[c], 1.0), sel)
+        assert torch.equal(got[c][finite], row[finite])
+        assert (got[c][~finite] == ref.NEG_LARGE).all()
+    if layout == "tie":
+        assert (got == got[0, 0]).all()
+    if C == 1:
+        assert int(torch.argmax(got[0])) == int(torch.argmax(ops.eirate(
+            mu, sg, best, mem, cm[0].contiguous(), sel)))
+    with pytest.raises(ValueError):
+        ops.eirate_classes(mu, sg, best, mem, cm[:, :-1], sel)
+    with pytest.raises(TypeError):
+        ops.eirate_classes(mu, sg, best, mem, cm.double(), sel)
+
+
+def test_devplane_run_on_card_equals_cpu(cuda):
+    """A short heterogeneous device-churn run: batched assignment through
+    the class kernel on the card gives the CPU run's trials, one class
+    launch per scoring pass that found live candidates (a pass over an
+    empty pool returns early and launches nothing)."""
+    trace = device_churn_trace(
+        num_sessions=25, arrival_rate=1.0, seed=2, initial_slices=4,
+        join_classes=(("fast", 16, 2.0),), join_rate=0.05, leave_rate=0.1,
+        preempt_rate=0.1, m_min=2, m_max=10, session_scale=20.0)
+    runs = {}
+    for device in (cuda, "cpu"):
+        reg = two_class_registry(2.0, overhead=0.5)
+        eng = DevPlaneEngine(reg.build_fleet([("slow", 2), ("fast", 2)]),
+                             "mdmt", seed=0, registry=reg,
+                             launch_order="fastest", max_live_models=60,
+                             device=device)
+        plane, batch, dry = eng.cp, eng.cp.choose_mdmt_batch, [0]
+
+        def counted(*args, **kw):
+            dry[0] += bool(plane.selected.all())
+            return batch(*args, **kw)
+
+        plane.choose_mdmt_batch = counted
+        before = ei_score.classes_launches
+        runs[str(device)] = (eng.run(trace), eng._scoring_passes - dry[0],
+                             ei_score.classes_launches - before)
+    (gpu, passes, launches), (cpu, _, cpu_launches) = runs["cuda"], runs["cpu"]
+    assert gpu.trials == cpu.trials
+    assert launches == passes > 0 and cpu_launches == 0
 
 
 def _churn_picks(plane):

@@ -219,6 +219,9 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
         ops.eirate(*args)
     with pytest.raises(ValueError, match="CUDA"):
         ops.eirate_topk(*args, k=4)
+    cm = torch.ones((2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.eirate_classes(*args[:4], cm, args[5])
     W = torch.zeros((3, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.gp_readout(W, torch.zeros(3, device="meta"),
@@ -228,7 +231,8 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
 def test_build_is_keyed_on_the_source():
     """Each source builds into its own library under build/repro_torch/,
     named by a hash of source and flags (a second run reuses it)."""
-    assert _build.sources() == ["ei_score", "ei_topk", "gp_readout"]
+    assert _build.sources() == ["ei_classes", "ei_score", "ei_topk",
+                                "gp_readout"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR

@@ -400,6 +400,10 @@ def test_mesh_placement_and_route_names():
     for jax_name in jshard.SCORE_KERNELS:
         with pytest.raises(ValueError, match="eirate_topk"):
             tshard.ShardedScorer(1, kernel=jax_name, device="cpu")
-    cp = _dyn_plane(TPlane, "sharded", 2)
-    with pytest.raises(NotImplementedError, match="device.plane"):
-        cp._sharded.decide_topk_classes(None, None, None, None, [1.0], [0.0])
+    # the per-class decision of the device plane equals the ops plane's
+    cp, ops_cp = _dyn_plane(TPlane, "sharded", 2), _dyn_plane(TPlane, "ops", 2)
+    for k in (1, 3):
+        got = cp.choose_mdmt_batch([1.0, 0.5], [0.0, 0.25], k)
+        want = ops_cp.choose_mdmt_batch([1.0, 0.5], [0.0, 0.25], k)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
