@@ -46,6 +46,32 @@ Run from the root of a checkout on a machine with one CUDA card and
                  pass in (a) and once per shard per pass in (b); then that
                  kernel held against its plain version on the inputs run (a)
                  gave it
+  kernels_data_plane
+                 the flash attention kernel against its plain version at
+                 qwen3-4b's shape (bf16 and float32), olmo-1b's MHA,
+                 h2o-danube-3-4b's sliding window at S 8,192 and an S that no
+                 64 divides; the SSD kernel at mamba2-1.3b's shape (float32
+                 and bf16 x/b/c), zamba2's and a single chunk; each with its
+                 tolerance, CUDA-event times of kernel, plain version and the
+                 one PyTorch call that computes the same function (flash:
+                 scaled_dot_product_attention; SSD: none), and its bound at
+                 the peak of the inputs' type (bf16 tensor cores or float32
+                 CUDA cores)
+  model_forward  qwen3-4b, then mamba2-1.3b, at full width and depth, random
+                 weights from a seed, bf16, B 4 x S 2,048: forward_loss and
+                 forward_logits_last on the card, one flash launch a layer
+                 (36) or one SSD launch a layer (48) per forward and no other
+                 kernel; the kernel held against its plain version on layer
+                 0's own inputs; then a CPU twin of the first 2 layers at S 256
+                 in float32, last logits equal to the card's
+  serve          StaticBatchEngine on each model (4 requests, prompts of 100 to
+                 1,000 tokens, 32 new tokens each, 2 slots): waves, decode
+                 steps, slot utilisation, prefill and decode times; then one
+                 decode_step after prefill of S - 1 tokens against the kernel
+                 path's forward_logits_last of S tokens, held in float32;
+                 in bf16 its drift recorded at 2, 1/4, 1/2 and all of the
+                 layers, and the card's bf16 prefill + decode held against
+                 the CPU's at 2 layers
 
 Then a line listing each kernel, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -105,6 +131,40 @@ DEVPLANE_SNAPSHOT_EVERY = 200  # processed events between snapshots in (e)
 DEVPLANE_CPU_HORIZON = np.inf  # the CPU twin's run (all of it, or a prefix
                                # to this many simulated seconds)
 CLASSES_C = 4                  # device classes of the service-size case
+
+# the data plane
+BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
+# a data-plane kernel against its plain version, by the output's dtype:
+# |got - want| <= rtol |want| + atol_of_max max|want|.  float32: sums in
+# another order, 2e-4 of each.  bf16: both sides compute in float32 and
+# round once, so they are at most one bf16 ulp apart (at most 2^-7 of the
+# value): rtol 1e-2, and 1e-3 of max|want| where the value is near 0.  The
+# absolute part scales with max|want|, so no limit nears the values held.
+DATA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
+FLASH_CASES = (                # name, B, S, Hq, Hkv, D, window, dtype
+    ("qwen3_4b_bf16", 2, 2048, 32, 8, 128, None, torch.bfloat16),
+    ("qwen3_4b_f32", 2, 2048, 32, 8, 128, None, torch.float32),
+    ("olmo_1b_mha", 2, 2048, 16, 16, 128, None, torch.bfloat16),
+    ("h2o_danube_3_4b_window", 1, 8192, 32, 8, 120, 4096, torch.bfloat16),
+    ("ragged_s1000", 2, 1000, 32, 8, 128, None, torch.bfloat16),
+)
+SSD_CASES = (                  # name, B, S, H, P, N, chunk, dtype of x, b, c
+    ("mamba2_1p3b", 2, 2048, 64, 64, 128, 256, torch.float32),
+    ("zamba2_2p7b", 2, 2048, 80, 64, 64, 256, torch.float32),
+    ("single_chunk", 2, 256, 64, 64, 128, 256, torch.float32),
+    ("mamba2_1p3b_bf16", 2, 2048, 64, 64, 128, 256, torch.bfloat16),
+)
+MODEL_ARCHS = ("qwen3-4b", "mamba2-1.3b")
+MODEL_BATCH, MODEL_SEQ = 4, 2048
+TWIN_LAYERS, TWIN_BATCH, TWIN_SEQ = 2, 2, 256
+TWIN_TOL = 2e-4                # float32 on both: sums in another order
+# bf16 on both, card and CPU: the two round the products of their own GEMMs,
+# test_kernels.py's bf16 tolerance (atol = rtol) for two implementations
+TWIN_TOL_BF16 = 5e-2
+SERVE_PROMPTS = (100, 400, 700, 1000)
+SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 32, 2, 2048
+CHECK_SEQ = 513                # decode after prefill: S - 1 = 512 prefilled
+DECODE_TOL = 3e-2              # tests/test_models.py's
 
 
 def emit(obj) -> None:
@@ -794,6 +854,373 @@ def devplane_phase(dev, counters, DevPlaneEngine, two_class_registry, stream,
         runs=runs, main_path_inputs=[main_case])
 
 
+# ---- the data plane ------------------------------------------------------------
+
+def auto_ms(fn, budget_ms: float = 150.0, max_iters: int = 50) -> float:
+    """:func:`cuda_ms` over as many calls as fill about ``budget_ms``
+    (3 to ``max_iters``), from one timed call."""
+    first = cuda_ms(fn, 1)
+    return cuda_ms(fn, int(min(max(budget_ms / max(first, 1e-3), 3), max_iters)))
+
+
+def bounds(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
+    """The bound at the card's peak for the inputs' type (bf16: the tensor
+    cores' 989 TFLOP/s; float32: the CUDA cores' 67 TFLOP/s) and, beside
+    it, the bound at the float32 CUDA-core rate the kernels compute at."""
+    f32_ms = bound_ms(nbytes, flops)[0]
+    if dtype != torch.bfloat16:
+        b_ms, b_by = bound_ms(nbytes, flops)
+        peak = "float32 CUDA cores, 67 TFLOP/s; 3.35 TB/s"
+    else:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_OPS_PER_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        peak = "bf16 tensor cores, 989 TFLOP/s; 3.35 TB/s"
+    return dict(bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
+                bound_peak=peak, bound_ms_f32_cuda_cores=f32_ms)
+
+
+def held(name, got, want) -> dict:
+    """Holds a kernel's output to its plain version's at DATA_TOL of the
+    output's dtype; what the case prints of it."""
+    rtol, atol_of_max = DATA_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    diff = (g - w).abs()
+    err = float(diff.max())
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(g).all()) and scale > 0.0
+          and bool((diff <= atol_of_max * scale + rtol * w.abs()).all()),
+          f"{name}: kernel and plain version differ by {err} "
+          f"(max |want| {scale})")
+    return dict(tolerance=dict(rtol=rtol, atol=atol_of_max * scale,
+                               atol_of_max_abs_want=atol_of_max),
+                max_abs_err=err, max_abs_want=scale,
+                err_over_max_abs_want=err / scale)
+
+
+def flash_check(name, q, k, v, window, flash_mod, ref):
+    """The flash kernel against ``ref.attention_ref`` on the same card
+    inputs, to DATA_TOL; CUDA-event times of both and of
+    scaled_dot_product_attention; the bound counts each input read and the
+    output written once, and 4 D flops per unmasked (query, key) pair."""
+    got = flash_mod.flash_attention(q, k, v, window=window)
+    want = ref.attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    agreement = held(f"flash_attention {name}", got, want)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        def library():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
+    rows = np.arange(S)
+    pairs = int((rows + 1 if window is None else np.minimum(rows + 1, window)).sum())
+    nbytes = q.element_size() * 2 * B * S * D * (Hq + Hkv)
+    rec = dict(case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window,
+               dtype=str(q.dtype).replace("torch.", ""), **agreement,
+               unmasked_pairs=pairs * B * Hq,
+               ms=auto_ms(lambda: flash_mod.flash_attention(q, k, v, window=window)),
+               plain_ms=auto_ms(lambda: ref.attention_ref(q, k, v, window=window),
+                                max_iters=5),
+               library_ms=auto_ms(library), library_max_abs_err=lib_err)
+    rec.update(bounds(nbytes, 4 * D * pairs * B * Hq, q.dtype))
+    return rec
+
+
+def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
+    """The SSD kernel against ``ref.ssd_ref`` (the per-step recurrence) on
+    the same card inputs, to DATA_TOL (the output is float32); CUDA-event
+    times of both (no single PyTorch call computes the scan).  The bound
+    counts each input read and y written once, and the chunked algorithm's
+    flops with C B^T taken once per (batch, chunk), as the heads share it,
+    at the peak for x, b and c's type."""
+    got = ssd_mod.ssd_mix(x, dt, la, b, c, chunk=chunk)
+    want = ref.ssd_ref(x, dt, la, b, c)
+    torch.cuda.synchronize()
+    agreement = held(f"ssd {name}", got, want)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    chunks = [min(Q, S - c0) for c0 in range(0, S, Q)]
+    flops = 0
+    for L in chunks:
+        pairs = L * (L + 1) // 2
+        flops += B * 2 * N * pairs                                  # C B^T
+        flops += B * H * (pairs * (2 * P + 3) + L * P * (4 * N + 1) + 2 * P * N)
+    nbytes = (x.element_size() * (B * S * H * P + 2 * B * S * N)
+              + 4 * 2 * B * S * H + 4 * B * S * H * P)
+    rec = dict(case=name, B=B, S=S, H=H, P=P, N=N, chunk=Q,
+               dtype=str(x.dtype).replace("torch.", ""), **agreement,
+               ms=auto_ms(lambda: ssd_mod.ssd_mix(x, dt, la, b, c, chunk=chunk)),
+               plain_ms=auto_ms(lambda: ref.ssd_ref(x, dt, la, b, c), max_iters=3),
+               library_ms=None)
+    rec.update(bounds(nbytes, flops, x.dtype))
+    return rec
+
+
+def flash_case(name, B, S, Hq, Hkv, D, window, dtype, gen, dev, flash_mod, ref):
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    return flash_check(name, q, k, v, window, flash_mod, ref)
+
+
+def ssd_case(name, B, S, H, P, N, chunk, dtype, gen, dev, ssd_mod, ref):
+    """Inputs as the model makes them: dt in [0.001, 0.1], log_a = -dt A
+    with A in [0.5, 2]."""
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.rand((B, S, H), generator=gen, device=dev) * 0.099 + 0.001
+    la = -dt * (torch.rand((H,), generator=gen, device=dev) * 1.5 + 0.5)
+    b, c = (torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref)
+
+
+def reset(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read(counters) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def tensors_to(tree, device):
+    from repro_torch.models.spec import tree_map
+    return tree_map(lambda t: t.to(device), tree, lambda x: isinstance(x, torch.Tensor))
+
+
+def first_layers(params, n: int):
+    """The parameters with the first ``n`` layers of the stacked blocks
+    (views, no copy)."""
+    from repro_torch.models.spec import tree_map
+    return {**params, "blocks": tree_map(lambda a: a[:n], params["blocks"],
+                                         lambda x: isinstance(x, torch.Tensor))}
+
+
+def model_forward_phase(arch, seed, dev, counters):
+    """One model at full width and depth on the card: loss and last logits
+    through the kernel path, launches per forward, the kernel on layer 0's
+    own inputs, and a CPU twin of the first layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.models import forward_logits_last, forward_loss, init_params
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import apply_norm, embed_lookup
+    from repro_torch.models.spec import tree_map
+    from repro_torch.models.ssm import mix_inputs
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    tokens, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MODEL_BATCH, MODEL_SEQ)).astype(np.int32)).to(dev)
+        for _ in range(2))
+    runs = {}
+    for fn_name, fn, batch in (
+            ("forward_loss", forward_loss, {"tokens": tokens, "labels": labels}),
+            ("forward_logits_last", forward_logits_last, {"tokens": tokens})):
+        reset(counters)
+        t0 = time.perf_counter()
+        out = fn(params, batch, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read(counters)
+        check(launches[kernel] == cfg.num_layers
+              and sum(launches.values()) == cfg.num_layers,
+              f"model_forward {arch} {fn_name}: launches {launches}, expected "
+              f"{cfg.num_layers} of {kernel} and no other kernel")
+        check(bool(torch.isfinite(out).all()), f"model_forward {arch} {fn_name}: "
+              "non-finite output")
+        runs[fn_name] = dict(wall_s=wall, tokens_per_s=MODEL_BATCH * MODEL_SEQ / wall,
+                             launches=launches)
+        if fn_name == "forward_loss":
+            # the value is the random init's (whose fan-in counts the stacked
+            # layer axis, as the reference's does); the CPU twin below holds it
+            loss = float(out)
+            check(out.shape == () and loss > 0.0, f"model_forward {arch}: loss {loss}")
+        else:
+            check(tuple(out.shape) == (MODEL_BATCH, 1, cfg.vocab_size),
+                  f"model_forward {arch}: logits of shape {tuple(out.shape)}")
+            last = out
+
+    # the kernel on layer 0's own inputs
+    layer0 = tree_map(lambda a: a[0], params["blocks"],
+                      lambda x: isinstance(x, torch.Tensor))
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    if cfg.family == "ssm":
+        h = apply_norm(cfg.norm, layer0["norm"], x)
+        (xh, dt, la, bm, cm, Q), _ = mix_inputs(layer0["ssm"], h, cfg.ssm)
+        layer0_case = ssd_check(f"layer0_{arch}", xh, dt, la, bm, cm, Q,
+                                ssd_mod, ref)
+    else:
+        h = apply_norm(cfg.norm, layer0.get("attn_norm") or None, x)
+        positions = torch.arange(MODEL_SEQ, dtype=torch.int32, device=dev)
+        q, k, v = _project_qkv(layer0["attn"], h, cfg.attn_cfg, positions)
+        layer0_case = flash_check(f"layer0_{arch}", q, k, v, cfg.sliding_window,
+                                  flash_mod, ref)
+
+    # CPU twin: the first layers in float32, card and CPU
+    twin_cfg = dataclasses.replace(cfg, num_layers=TWIN_LAYERS,
+                                   compute_dtype=torch.float32)
+    twin = first_layers(params, TWIN_LAYERS)
+    twin_batch = {"tokens": tokens[:TWIN_BATCH, :TWIN_SEQ],
+                  "labels": labels[:TWIN_BATCH, :TWIN_SEQ]}
+    reset(counters)
+    card = forward_logits_last(twin, twin_batch, twin_cfg)
+    card_loss = forward_loss(twin, twin_batch, twin_cfg)
+    torch.cuda.synchronize()
+    twin_launches = read(counters)
+    t0 = time.perf_counter()
+    twin_cpu = tensors_to(twin, "cpu")
+    batch_cpu = {k: v.cpu() for k, v in twin_batch.items()}
+    cpu = forward_logits_last(twin_cpu, batch_cpu, twin_cfg)
+    cpu_loss = forward_loss(twin_cpu, batch_cpu, twin_cfg)
+    cpu_s = time.perf_counter() - t0
+    twin_err = float((card.cpu() - cpu).abs().max())
+    check(twin_launches[kernel] == 2 * TWIN_LAYERS
+          and torch.allclose(card.cpu(), cpu, atol=TWIN_TOL, rtol=TWIN_TOL)
+          and torch.allclose(card_loss.cpu(), cpu_loss, atol=TWIN_TOL, rtol=TWIN_TOL),
+          f"model_forward {arch}: the CPU twin differs: last logits by {twin_err}, "
+          f"loss {float(card_loss)} vs {float(cpu_loss)} (launches {twin_launches})")
+    rec = dict(phase="model_forward", arch=arch, family=cfg.family,
+               params=cfg.param_count(), layers=cfg.num_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size,
+               compute_dtype=str(cfg.compute_dtype).replace("torch.", ""),
+               batch=MODEL_BATCH, seq=MODEL_SEQ, seed=seed, init_s=init_s,
+               loss=loss, logits_last_finite=True,
+               logits_last_abs_max=float(last.float().abs().max()),
+               runs=runs, kernel=kernel,
+               launches_per_forward=runs["forward_logits_last"]["launches"][kernel],
+               layer0_kernel_case=layer0_case,
+               cpu_twin=dict(layers=TWIN_LAYERS, batch=TWIN_BATCH, seq=TWIN_SEQ,
+                             dtype="float32", tolerance=TWIN_TOL,
+                             max_abs_err=twin_err, loss_card=float(card_loss),
+                             loss_cpu=float(cpu_loss), card_launches=twin_launches,
+                             cpu_s=cpu_s),
+               phase_s=time.perf_counter() - t_phase)
+    return params, cfg, rec
+
+
+def decode_after_prefill(params, toks, cfg):
+    """One ``decode_step`` after ``prefill`` of ``toks[:, :-1]``, and the
+    kernel path's ``forward_logits_last`` of ``toks``: (decode logits,
+    forward logits)."""
+    from repro_torch.models import decode_step, forward_logits_last, prefill
+    want = forward_logits_last(params, {"tokens": toks}, cfg)
+    _, cache = prefill(params, {"tokens": toks[:, :-1]}, cfg,
+                       max_len=toks.shape[1] + 8)
+    got, _ = decode_step(params, {"tokens": toks[:, -1:]}, cache, cfg)
+    return got, want
+
+
+def serve_phase(arch, params, cfg, seed, dev, counters):
+    """StaticBatchEngine on the card, then decode after prefill against the
+    kernel path's forward: held in float32 at full depth; in bf16 held card
+    against CPU at TWIN_LAYERS and its drift recorded by depth."""
+    from repro_torch.serve import Request, ServeConfig, StaticBatchEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    eng = StaticBatchEngine(cfg, params, ServeConfig(
+        batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN), device=dev)
+    for i, n in enumerate(SERVE_PROMPTS):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                           max_new_tokens=SERVE_NEW))
+    reset(counters)
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    st = eng.stats
+    waves = -(-len(SERVE_PROMPTS) // SERVE_SLOTS)
+    check(len(done) == len(SERVE_PROMPTS)
+          and all(r.done and len(r.output) == SERVE_NEW
+                  and all(0 <= t < cfg.vocab_size for t in r.output) for r in done)
+          and st["waves"] == waves and st["decode_steps"] == waves * SERVE_NEW,
+          f"serve {arch}: {len(done)} requests done, stats {st}")
+
+    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ))
+                            .astype(np.int32)).to(dev)
+    drift = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        reset(counters)
+        got, want = decode_after_prefill(params, toks, c)
+        torch.cuda.synchronize()
+        # the forward launches the kernel once a layer; prefill and decode none
+        got_launches = read(counters)
+        check(got_launches[kernel] == cfg.num_layers
+              and sum(got_launches.values()) == cfg.num_layers,
+              f"serve {arch}: the check launched {got_launches}")
+        drift[str(dtype).replace("torch.", "")] = float(
+            (got.float() - want.float()).abs().max())
+    # float32: the two paths differ only in the order of sums
+    check(drift["float32"] <= DECODE_TOL,
+          f"serve {arch}: decode after prefill differs from the forward by "
+          f"{drift['float32']} (float32)")
+
+    # bf16: the plain prefill/decode path rounds attention probabilities
+    # (and the SSD scan's C B^T and intra-chunk product) to bf16 in every
+    # layer, as the reference's does, where the kernels keep float32; the
+    # drift from the forward is recorded by depth.  What is held: the
+    # card's bf16 prefill + decode against the CPU's at TWIN_LAYERS (the
+    # CPU tests hold the CPU's against the JAX package's in bf16)
+    c16 = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    by_depth = {}
+    for L in sorted({TWIN_LAYERS, cfg.num_layers // 4, cfg.num_layers // 2}):
+        got, want = decode_after_prefill(first_layers(params, L), toks,
+                                         dataclasses.replace(c16, num_layers=L))
+        by_depth[L] = float((got.float() - want.float()).abs().max())
+    by_depth[cfg.num_layers] = drift["bfloat16"]
+    twin_cfg = dataclasses.replace(c16, num_layers=TWIN_LAYERS)
+    twin_toks = toks[:, :TWIN_SEQ]
+    card = decode_after_prefill(first_layers(params, TWIN_LAYERS), twin_toks, twin_cfg)
+    t0 = time.perf_counter()
+    cpu = decode_after_prefill(tensors_to(first_layers(params, TWIN_LAYERS), "cpu"),
+                               twin_toks.cpu(), twin_cfg)
+    cpu_s = time.perf_counter() - t0
+    twin_errs = [float((g.float().cpu() - w.float()).abs().max())
+                 for g, w in zip(card, cpu)]
+    check(all(torch.allclose(g.float().cpu(), w.float(), atol=TWIN_TOL_BF16,
+                             rtol=TWIN_TOL_BF16) for g, w in zip(card, cpu)),
+          f"serve {arch}: bf16 decode and forward logits on the card differ "
+          f"from the CPU's by {twin_errs}")
+    return dict(phase="serve", arch=arch, prompts=list(SERVE_PROMPTS),
+                new_tokens=SERVE_NEW, slots=SERVE_SLOTS, waves=st["waves"],
+                decode_steps=st["decode_steps"],
+                slot_utilization=eng.slot_utilization,
+                prefill_ms_per_wave=st["prefill"] / st["waves"] * 1e3,
+                decode_ms_per_step=st["decode"] / st["decode_steps"] * 1e3,
+                tokens_out=sum(len(r.output) for r in done), wall_s=wall,
+                launches=launches,
+                decode_after_prefill=dict(
+                    seq=CHECK_SEQ, tolerance=DECODE_TOL, held="float32",
+                    max_abs_err=drift, bf16_max_abs_err_by_layers=by_depth,
+                    bf16_cpu_twin=dict(layers=TWIN_LAYERS, seq=TWIN_SEQ,
+                                       tolerance=TWIN_TOL_BF16,
+                                       decode_max_abs_err=twin_errs[0],
+                                       forward_max_abs_err=twin_errs[1],
+                                       cpu_s=cpu_s)),
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -810,9 +1237,14 @@ def main() -> int:
     from repro_torch.core.tenancy import _matern_block_chol, _matern_draw
     from repro_torch.devplane import DevPlaneEngine, two_class_registry
     from repro_torch.kernels import ei_score, gp_readout, ops, ref
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.shardgp import ShardedScorer
 
     dev = torch.device("cuda")
+    # float32 products in full float32 (the default, stated): the CPU twins
+    # are held to the card at float32 tolerance
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
     per_source = _build.build()
@@ -900,12 +1332,41 @@ def main() -> int:
     emit(dp)
     main_launches["eirate_classes"] = dp_runs["a"]["launches"]["eirate_classes"]
 
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flash_cases = [flash_case(*c, gen, dev, flash_mod, ref) for c in FLASH_CASES]
+    ssd_cases = [ssd_case(*c, gen, dev, ssd_mod, ref) for c in SSD_CASES]
+    emit(dict(phase="kernels_data_plane",
+              tolerance_reason="the kernels sum in other orders than their "
+              "plain versions (full-matrix attention, the per-step SSD "
+              "recurrence); |got - want| <= rtol |want| + atol, atol a share "
+              "of max |want|: float32 output rtol 2e-4 and 2e-4 of max "
+              "|want|; bf16 output (both sides round a float32 result once, "
+              "at most one bf16 ulp apart) rtol 1e-2 and 1e-3 of max |want|",
+              flash_attention=flash_cases, ssd=ssd_cases,
+              phase_s=time.perf_counter() - t0))
+
+    all_counters = {**counters, "flash_attention": (flash_mod, "launches"),
+                    "ssd": (ssd_mod, "launches")}
+    forward = {}
+    for arch in MODEL_ARCHS:
+        params, cfg, forward[arch] = model_forward_phase(arch, 0, dev, all_counters)
+        emit(forward[arch])
+        emit(serve_phase(arch, params, cfg, 0, dev, all_counters))
+        del params
+        torch.cuda.empty_cache()
+    main_launches["flash_attention"] = forward["qwen3-4b"]["launches_per_forward"]
+    main_launches["ssd"] = forward["mamba2-1.3b"]["launches_per_forward"]
+
     # Fig-5 shapes for the first two; the top-k kernel on the inputs the
     # churn trace's run (a) gave one shard, the class-axis kernel on inputs
-    # devplane_churn's run (a) gave it
+    # devplane_churn's run (a) gave it; flash attention and the SSD scan on
+    # layer 0's own inputs in model_forward (qwen3-4b, mamba2-1.3b)
     head = {"eirate": ei_cases[0], "gp_readout": ro_cases[2],
             "eirate_topk": rec["main_path_inputs"][0],
-            "eirate_classes": dp["main_path_inputs"][0]}
+            "eirate_classes": dp["main_path_inputs"][0],
+            "flash_attention": forward["qwen3-4b"]["layer0_kernel_case"],
+            "ssd": forward["mamba2-1.3b"]["layer0_kernel_case"]}
     sources = {"eirate": ("src/repro_torch/kernels/csrc/ei_score.cu",
                           "src/repro/kernels/ei_score.py:185"),
                "gp_readout": ("src/repro_torch/kernels/csrc/gp_readout.cu",
@@ -913,18 +1374,28 @@ def main() -> int:
                "eirate_topk": ("src/repro_torch/kernels/csrc/ei_topk.cu",
                                "src/repro/kernels/ei_score.py:235"),
                "eirate_classes": ("src/repro_torch/kernels/csrc/ei_classes.cu",
-                                  "src/repro/kernels/ei_score.py:301")}
+                                  "src/repro/kernels/ei_score.py:301"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:118"),
+               "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                       "src/repro/kernels/ssd.py:92")}
     cases = {"eirate": ei_cases, "gp_readout": ro_cases,
              "eirate_topk": topk_cases + rec["main_path_inputs"],
-             "eirate_classes": classes_cases + dp["main_path_inputs"]}
+             "eirate_classes": classes_cases + dp["main_path_inputs"],
+             "flash_attention": flash_cases + [head["flash_attention"]],
+             "ssd": ssd_cases + [head["ssd"]]}
     emit({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1], launches=main_launches[name],
         max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+        # each case's error as a share of its largest |plain value| (0 where
+        # the kernel is held bit-equal)
+        max_err_over_max_abs_want=max(c.get("err_over_max_abs_want", 0.0)
+                                      for c in cases[name]),
         ms=head[name]["ms"], plain_ms=head[name]["plain_ms"],
         bound_ms=head[name]["bound_ms"], bound_by=head[name]["bound_by"],
-        library_ms=None, shape_of_times=head[name]["case"])
-        for name in ("eirate", "gp_readout", "eirate_topk", "eirate_classes")]})
+        library_ms=head[name].get("library_ms"), shape_of_times=head[name]["case"])
+        for name in sources]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -3,7 +3,7 @@
 Each ``<name>.cu`` becomes its own shared library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
 libraries go to ``build/repro_torch/`` at the root of the checkout, named
-by a hash of the source, the shared headers and the flags, so a second run
+by a hash of the source, the shared headers and its flags, so a second run
 reuses them and an edited source is rebuilt.  Sources that need a build
 are compiled by one ``nvcc`` process each, all started together.
 
@@ -23,12 +23,16 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "kernels" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
-# -fmad=false: no multiply-add contraction, so every product and sum rounds
-# on its own exactly as the plain PyTorch versions' separate ops do.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: sources held to a tolerance, not to bits, against their plain versions:
+#: they may contract multiply-adds.  Every other source is built with
+#: -fmad=false, so each product and sum rounds on its own exactly as the
+#: plain PyTorch versions' separate ops do (the EIrate kernels and the
+#: readout are held bit-equal).
+FMA_SOURCES = frozenset({"flash_attention", "ssd"})
 
 #: ``nvcc`` output (``-Xptxas -v``: registers, spills) of this process's builds
 BUILD_LOG: dict[str, str] = {}
@@ -48,8 +52,13 @@ def _nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS if name in FMA_SOURCES else (*NVCC_FLAGS, "-fmad=false")
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     h.update((SRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -67,7 +76,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())

@@ -1,11 +1,13 @@
-"""Carries GP and control-plane state across into the port.
+"""Carries GP, control-plane and model state across into the port.
 
 Each function takes plain numpy arrays and Python values — what a caller
 reads off a reference object with ``np.asarray`` — and builds the port's
 counterpart on a given device, so that two implementations can be put in
 the same mid-episode state and asked for the same next decision.  An
 open-world plane's ``state_snapshot()`` already is such arrays and values:
-:func:`control_plane_from_snapshot` loads one.
+:func:`control_plane_from_snapshot` loads one.  :func:`model_params` and
+:func:`model_config` carry a model's parameters and configuration, so that
+both packages run the same weights.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ import torch
 
 from .core.control_plane import ControlPlane
 from .core.gp import DEFAULT_JITTER, BlockIncrementalGP, IncrementalGP
+from .models.model import ModelConfig
+from .models.spec import tree_map
+from .models.ssm import SSMConfig
 
 
 def incremental_gp(*, W, alpha, diag_acc, k, K, mu0, observed, z,
@@ -101,3 +106,45 @@ def _generator(rng_state: dict) -> np.random.Generator:
     bitgen = getattr(np.random, rng_state["bit_generator"])()
     bitgen.state = rng_state
     return np.random.Generator(bitgen)
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """A numpy array (bfloat16 included) or scalar as a tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: numpy has no bfloat16 of its own
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def model_params(tree, device=None):
+    """The reference's parameter (or cache) tree with each leaf, a numpy
+    array, as a tensor on ``device``: the same nested dicts and key paths,
+    NamedTuples kept."""
+    return tree_map(lambda a: tensor(a, device), tree)
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+# the reference's knobs that have no meaning in the port: its Pallas switch
+# (device dispatch replaces it), its remat policy and its roofline unroll
+_NOT_PORTED_FIELDS = ("use_pallas", "remat", "unroll_layers", "unroll")
+
+
+def _torch_dtype(d) -> torch.dtype:
+    return d if isinstance(d, torch.dtype) else _TORCH_DTYPES[np.dtype(d).name]
+
+
+def model_config(fields: dict) -> ModelConfig:
+    """The port's :class:`ModelConfig` from the fields of a reference
+    ``ModelConfig`` (``{f.name: getattr(cfg, f.name)}``): dtypes mapped to
+    torch's, the ``ssm`` NamedTuple to the port's, and the reference's
+    execution knobs that the port does not have dropped."""
+    f = {k: v for k, v in fields.items() if k not in _NOT_PORTED_FIELDS}
+    f["compute_dtype"] = _torch_dtype(f.get("compute_dtype", torch.bfloat16))
+    f["param_dtype"] = _torch_dtype(f.get("param_dtype", torch.float32))
+    if f.get("ssm") is not None:
+        s = f["ssm"]
+        s = s._asdict() if hasattr(s, "_asdict") else dict(s)
+        f["ssm"] = SSMConfig(**{k: v for k, v in s.items()
+                                if k not in _NOT_PORTED_FIELDS})
+    return ModelConfig(**f)

@@ -7,7 +7,8 @@ which launches or raises -- there is no fallback between them.
 
 from __future__ import annotations
 
-from . import ei_score, gp_readout as _gp_readout, ref
+from . import ei_score, flash_attention as _flash, gp_readout as _gp_readout, ref
+from . import ssd as _ssd
 
 
 def eirate(mu, sigma, best, membership, cost, selected):
@@ -43,3 +44,20 @@ def gp_readout(W, alpha, mu0, k_diag, *, emit_sd=False):
     if W.device.type == "cpu":
         return ref.gp_readout_ref(W, alpha, mu0, k_diag, emit_sd=emit_sd)
     return _gp_readout.gp_readout(W, alpha, mu0, k_diag, emit_sd=emit_sd)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """(B, S, Hq, D) causal GQA attention over q (B, S, Hq, D) and k, v
+    (B, S, Hkv, D), in q's dtype; ``window`` keeps keys k > q - window."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
+    """The Mamba2 SSD mix y (B, S, H, P) float32, without the D * x term.
+    The kernel scans chunks of ``chunk`` steps; the plain version steps the
+    recurrence, so ``chunk`` changes only the rounding."""
+    if x.device.type == "cpu":
+        return ref.ssd_ref(x, dt, log_a, b, c)
+    return _ssd.ssd_mix(x, dt, log_a, b, c, chunk=chunk)

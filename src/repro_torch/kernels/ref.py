@@ -1,12 +1,17 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each is the simplest formulation that does the kernel's arithmetic step for
-step: the same operations in the same order, each rounded on its own (the
-kernels are built without multiply-add contraction), and the elementary
-functions evaluated in float64 and rounded once (:func:`rn`).  The sums
-over tenants and over rows of W run in ascending order, as the kernels'
-loops do.  They run on any device: the CPU path of ``ops`` takes them, and
-``chip_smoke.py`` holds each kernel against them on the card.
+For the scheduler's kernels (EIrate, its top-k and class forms, the GP
+readout) each is the simplest formulation that does the kernel's arithmetic
+step for step: the same operations in the same order, each rounded on its
+own (those kernels are built without multiply-add contraction), and the
+elementary functions evaluated in float64 and rounded once (:func:`rn`).
+The sums over tenants and over rows of W run in ascending order, as the
+kernels' loops do.  The data plane's two (:func:`attention_ref`,
+:func:`ssd_ref`) are the definitionally correct formulations -- full-matrix
+attention, the per-step SSD recurrence -- in float32, and the kernels are
+held to them within a stated tolerance.  All run on any device: the CPU
+path of ``ops`` takes them, and ``chip_smoke.py`` holds each kernel against
+them on the card.
 """
 
 from __future__ import annotations
@@ -173,3 +178,59 @@ def gp_readout_ref(W, alpha, mu0, k_diag, *, emit_sd: bool = False):
     mu = mu0.float() + dot
     var = torch.clamp_min(k_diag.float() - sq, 0.0)
     return (mu, rn(torch.sqrt, var)) if emit_sd else (mu, var)
+
+
+# --- the data plane -----------------------------------------------------------
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
+    """Naive full-matrix GQA attention in float32, one KV head at a time.
+    q (B, S, Hq, D), k/v (B, S, Hkv, D) -> (B, S, Hq, D) in q's dtype.
+
+    The flash kernel's conventions: masked scores are -1e30, masked
+    probabilities are zeroed after the exp, and the row sum is clamped at
+    1e-30 (a fully masked row gives 0, not NaN).  Query head h reads KV
+    head h // (Hq / Hkv)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    scale = 1.0 / float(D) ** 0.5
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for g in range(Hkv):
+        qg = q[:, :, g * G:(g + 1) * G].float()                  # (B,S,G,D)
+        kg = k[:, :, g].float()                                  # (B,S,D)
+        vg = v[:, :, g].float()
+        s = torch.einsum("bqgd,bsd->bgqs", qg, kg) * scale
+        s = torch.where(mask, s, NEG_LARGE)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = torch.where(mask, p, 0.0)
+        o = torch.einsum("bgqs,bsd->bqgd", p, vg)
+        denom = torch.clamp_min(p.sum(-1), 1e-30)                # (B,G,S)
+        out[:, :, g * G:(g + 1) * G] = (
+            o / denom.permute(0, 2, 1)[..., None]).to(q.dtype)
+    return out
+
+
+def ssd_ref(x, dt, log_a, b, c):
+    """The per-step SSD recurrence (the definitionally correct oracle).
+
+    x (B, S, H, P), dt/log_a (B, S, H), b/c (B, S, N) -> y (B, S, H, P)
+    float32, y_t = C_t . h_t with h_t = exp(log_a_t) h_{t-1} +
+    dt_t B_t (x) x_t (no D * x skip term)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    xdt = x.float() * dt.float()[..., None]
+    decay = torch.exp(log_a.float())
+    bf, cf = b.float(), c.float()
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = (decay[:, t, :, None, None] * h
+             + xdt[:, t, :, :, None] * bf[:, t, None, None, :])
+        ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], h))
+    return torch.stack(ys, 1)

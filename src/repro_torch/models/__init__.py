@@ -1,0 +1,14 @@
+"""The data plane's models: specs, layers, attention, Mamba2 SSD and the
+backbone, for the dense and ssm families."""
+
+from .model import (  # noqa: F401
+    ModelConfig,
+    decode_step,
+    forward_logits_last,
+    forward_loss,
+    init_cache,
+    init_params,
+    make_cache_specs,
+    model_specs,
+    prefill,
+)

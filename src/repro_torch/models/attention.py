@@ -1,0 +1,177 @@
+"""Grouped-query attention: the full-sequence forward, prefill with a KV
+cache, and one decode step.
+
+Counterpart of ``repro.models.attention``.  ``attention_train`` always
+runs the flash attention kernel through ``ops.flash_attention`` (the
+reference's ``use_pallas=True`` branch; on the CPU that is its plain
+version).  Prefill keeps the reference's chunked plain path, because it
+also emits the ring-buffer cache, and decode is one step against that cache.
+Optional per-head RMS q/k-norm (Qwen3) and sliding-window masking
+(H2O-Danube3).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .layers import rmsnorm, rope
+from .spec import ParamSpec
+
+
+class AttnConfig(NamedTuple):
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    sliding_window: int | None = None
+    rope_theta: float = 10000.0
+    q_chunk: int = 512
+    causal: bool = True
+    logits_fp32: bool = True
+
+
+def attn_specs(cfg: AttnConfig) -> dict:
+    d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((d, H, D), ("embed", "heads", "head_dim"), init="fan_in"),
+        "wk": ParamSpec((d, Hkv, D), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wv": ParamSpec((d, Hkv, D), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wo": ParamSpec((H, D, d), ("heads", "head_dim", "embed"), init="fan_in"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = {"scale": ParamSpec((D,), ("head_dim",), init="ones")}
+        specs["k_norm"] = {"scale": ParamSpec((D,), ("head_dim",), init="ones")}
+    return specs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, H, D) -> (B, S, H, D)."""
+    d, H, D = w.shape
+    return (x @ w.to(x.dtype).reshape(d, H * D)).view(*x.shape[:-1], H, D)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """out (B, S, H, D) @ wo (H, D, d) -> (B, S, d)."""
+    H, D, d = wo.shape
+    return out.reshape(*out.shape[:-2], H * D) @ wo.to(out.dtype).reshape(H * D, d)
+
+
+def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _acc_and_neg(cfg: AttnConfig, dtype):
+    acc_t = torch.float32 if cfg.logits_fp32 else dtype
+    return acc_t, (-1e30 if acc_t == torch.float32 else -3e38)
+
+
+def _gqa_scores_and_mix(q_blk, k, v, cfg: AttnConfig, q_pos, k_pos):
+    """q_blk (B, Qb, H, D), k/v (B, S, Hkv, D) -> (B, Qb, H, D)."""
+    B, Qb, H, D = q_blk.shape
+    Hkv = k.shape[2]
+    qg = q_blk.reshape(B, Qb, Hkv, H // Hkv, D)
+    acc_t, neg = _acc_and_neg(cfg, q_blk.dtype)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg, k).to(acc_t) * scale
+    mask = torch.ones((Qb, k.shape[1]), dtype=torch.bool, device=q_blk.device)
+    if cfg.causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if cfg.sliding_window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - cfg.sliding_window
+    logits = torch.where(mask, logits, neg)
+    probs = torch.softmax(logits, dim=-1).to(q_blk.dtype)
+    out = torch.einsum("bhgqs,bshd->bqhgd", probs, v)
+    return out.reshape(B, Qb, H, D)
+
+
+def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: AttnConfig) -> torch.Tensor:
+    """Full-sequence self-attention through the flash attention kernel."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    return _out_proj(out, p["wo"])
+
+
+def attention_train_with_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                            cfg: AttnConfig, max_len: int) -> tuple[torch.Tensor, dict]:
+    """Prefill path: chunked-causal attention that also emits the decode cache.
+
+    The cache is laid out ring-buffer style (position p at slot p % size)
+    so that ``attention_decode`` writes continue seamlessly; with a sliding
+    window, size == window and only the last window of keys is kept."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    Qb = min(cfg.q_chunk, S)
+    if S % Qb:
+        Qb = S              # irregular length: single query block
+    out = torch.cat([_gqa_scores_and_mix(q[:, i:i + Qb], k, v, cfg,
+                                         positions[i:i + Qb], positions)
+                     for i in range(0, S, Qb)], dim=1)
+    y = _out_proj(out, p["wo"])
+
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    if S >= size:
+        # keep the last `size` positions, rotated so position p sits at slot p % size
+        k_c = torch.roll(k[:, S - size:], S % size, dims=1)
+        v_c = torch.roll(v[:, S - size:], S % size, dims=1)
+    else:
+        k_c = F.pad(k, (0, 0, 0, 0, 0, size - S))
+        v_c = F.pad(v, (0, 0, 0, 0, 0, size - S))
+    length = torch.tensor(S, dtype=torch.int32, device=x.device)
+    return y, {"k": k_c, "v": v_c, "length": length}
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S_cache, Hkv, D), a ring buffer with a window
+    v: torch.Tensor
+    length: torch.Tensor     # scalar int32: total tokens written so far
+
+
+def kv_cache_specs(cfg: AttnConfig, batch: int, max_len: int, dtype) -> KVCache:
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return KVCache(
+        k=ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+        v=ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+        length=ParamSpec((), (), dtype=torch.int32, init="zeros"),
+    )
+
+
+def attention_decode(p: dict, x: torch.Tensor, cache: KVCache,
+                     cfg: AttnConfig) -> tuple[torch.Tensor, KVCache]:
+    """One decode step, x (B, 1, d): write the new key and value at slot
+    length % size of a copy of the cache, attend over the written slots.
+    (The reference's ``write_back=False`` branch, which no caller takes,
+    is not ported.)"""
+    B = x.shape[0]
+    pos = cache.length
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos.reshape(1))
+    size = cache.k.shape[1]
+    slot = (pos % size).reshape(1).long()
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    acc_t, neg = _acc_and_neg(cfg, cache.k.dtype)
+    k = cache.k.index_copy(1, slot, k_new.to(cache.k.dtype))
+    v = cache.v.index_copy(1, slot, v_new.to(cache.v.dtype))
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k).to(acc_t) * (1.0 / math.sqrt(D))
+    idx = torch.arange(size, device=x.device)
+    written = torch.where(pos + 1 < size, idx <= slot, torch.ones_like(idx, dtype=torch.bool))
+    logits = torch.where(written, logits, neg)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v).reshape(B, 1, H, D)
+    return _out_proj(out, p["wo"]), KVCache(k=k, v=v, length=pos + 1)

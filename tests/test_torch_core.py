@@ -269,7 +269,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) > 10
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}

@@ -6,10 +6,19 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernels do the plain versions' arithmetic step for step
-(no multiply-add contraction, sums in ascending order, elementary functions
-taken in double and rounded once), so both are held bit-equal.
+Tolerances: the scheduler's kernels do the plain versions' arithmetic step
+for step (no multiply-add contraction, sums in ascending order, elementary
+functions taken in double and rounded once), so both are held bit-equal.
+The data plane's two (flash attention, the SSD scan) sum in other orders
+than their plain versions (full-matrix attention, the per-step
+recurrence): 2e-4 (absolute and relative) in float32.  Where the output
+is bfloat16 both sides compute in float32 and round once, so they are at
+most one bf16 ulp apart (at most 2^-7 of the value): rtol 1e-2, and an
+atol of 1e-3 of the largest |want| for values near 0.  The card's float32
+model forward is held to the CPU's at 2e-4 too.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,7 +28,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import ControlPlane, simulate, synthetic_matern_problem  # noqa: E402
 from repro_torch.core.tenancy import _matern_block_chol  # noqa: E402
 from repro_torch.devplane import DevPlaneEngine, two_class_registry  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
+from repro_torch.models import forward_logits_last, init_params  # noqa: E402
+from repro_torch.models.spec import tree_map  # noqa: E402
+from repro_torch.serve import Request, ServeConfig, StaticBatchEngine  # noqa: E402
 from repro_torch.stream import device_churn_trace  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -223,3 +238,143 @@ def test_episode_on_card_equals_cpu(cuda, policy):
         assert ei_score.launches > e0
     cpu = simulate(prob, policy, num_devices=3, seed=0, device="cpu")
     assert gpu.trials == cpu.trials
+
+
+# --- the data plane ---------------------------------------------------------------
+
+F32 = dict(atol=2e-4, rtol=2e-4)
+
+
+def _assert_close(got, want):
+    """F32 for float32 output; for bf16 output rtol 1e-2 (one bf16 ulp is at
+    most 2^-7 of the value) and an atol of 1e-3 of max |want|."""
+    if want.dtype != torch.bfloat16:
+        torch.testing.assert_close(got, want, **F32)
+        return
+    assert got.dtype == torch.bfloat16
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=1e-2,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,dtype,causal", [
+    (2, 128, 4, 4, 32, None, torch.float32, True),      # MHA
+    (1, 200, 8, 2, 120, None, torch.float32, True),     # D 120, S no multiple of 64
+    (2, 256, 4, 2, 64, 64, torch.float32, True),        # sliding window
+    (1, 100, 4, 1, 80, None, torch.bfloat16, True),     # MQA, D 80
+    (1, 130, 8, 2, 128, 48, torch.bfloat16, True),      # GQA 4:1, window, ragged S
+    (1, 1, 2, 1, 16, None, torch.float32, True),        # one step
+    (2, 77, 4, 2, 64, None, torch.float32, False),      # not causal
+])
+def test_flash_attention_kernel_matches_plain(cuda, rng, B, S, Hq, Hkv, D, window, dtype,
+                                              causal):
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(np.float32))
+               .to(cuda, dtype) for h in (Hq, Hkv, Hkv))
+    before = flash_mod.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1 and got.dtype == dtype
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    _assert_close(got, want)
+
+
+def test_flash_attention_kernel_takes_strided_inputs(cuda, rng):
+    """q, k, v as views of one fused projection (unit stride along D only)."""
+    qkv = torch.from_numpy(rng.standard_normal((2, 96, 8, 32)).astype(np.float32)).to(cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = ops.flash_attention(q, k, v)
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), **F32)
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, device):
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (B, S, H)).astype(np.float32)
+    la = (-dt * rng.uniform(0.5, 2.0, (1, 1, H))).astype(np.float32)
+    b = rng.standard_normal((B, S, N)).astype(np.float32)
+    c = rng.standard_normal((B, S, N)).astype(np.float32)
+    t = [torch.from_numpy(a).to(device) for a in (x, dt, la, b, c)]
+    return [t[0].to(dtype), t[1], t[2], t[3].to(dtype), t[4].to(dtype)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (2, 64, 2, 16, 8, 16, torch.float32),
+    (1, 300, 3, 64, 128, 128, torch.float32),     # last chunk short
+    (2, 96, 4, 32, 16, 256, torch.float32),       # a single chunk
+    (1, 128, 2, 64, 64, 64, torch.bfloat16),      # bf16 x, B, C
+    (1, 70, 2, 128, 32, 32, torch.float32),       # P 128
+])
+def test_ssd_kernel_matches_plain(cuda, rng, B, S, H, P, N, chunk, dtype):
+    args = _ssd_inputs(rng, B, S, H, P, N, dtype, cuda)
+    before = ssd_mod.launches
+    got = ops.ssd_mix(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == before + 1 and got.dtype == torch.float32
+    # the inputs are the same values in both and both compute in float32
+    torch.testing.assert_close(got, ref.ssd_ref(*args), **F32)
+
+
+def test_data_plane_wrappers_refuse_bad_inputs(cuda, rng):
+    q = torch.zeros((1, 64, 4, 32), device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):                 # Hq not a multiple of Hkv
+        ops.flash_attention(q, q[:, :, :3], q[:, :, :3])
+    big = torch.zeros((1, 8, 1, 272), device=cuda)
+    with pytest.raises(ValueError):                 # D beyond the kernel
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError):                 # D not unit stride
+        ops.flash_attention(q.transpose(2, 3)[:, :, :4, :4], q[:, :, :4, :4],
+                            q[:, :, :4, :4])
+    x, dt, la, b, c = _ssd_inputs(rng, 1, 32, 2, 16, 8, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ops.ssd_mix(x, dt.double(), la, b, c)
+    with pytest.raises(TypeError):
+        ops.ssd_mix(x, dt, la, b.bfloat16(), c)
+    with pytest.raises(ValueError):
+        ops.ssd_mix(x, dt, la, b[:, :16], c[:, :16])
+    with pytest.raises(ValueError):
+        ops.ssd_mix(x, dt, la, b.cpu(), c)
+    wide = torch.zeros((1, 32, 2, 160), device=cuda)
+    with pytest.raises(ValueError):                 # P beyond the kernel
+        ops.ssd_mix(wide, dt, la, b, c)
+
+
+def _to(tree, device):
+    return tree_map(lambda t: t.to(device), tree, lambda x: isinstance(x, torch.Tensor))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "h2o-danube-3-4b", "olmo-1b", "mamba2-1.3b"])
+def test_smoke_forward_on_card_equals_cpu(cuda, arch):
+    """The smoke config in float32: the card's forward (flash or SSD kernel
+    in every layer) gives the CPU's last logits (plain versions)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=torch.float32)
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    want = forward_logits_last(params, {"tokens": tokens}, cfg)
+    f0, s0 = flash_mod.launches, ssd_mod.launches
+    got = forward_logits_last(_to(params, cuda), {"tokens": tokens.to(cuda)}, cfg)
+    torch.cuda.synchronize()
+    kernel = ssd_mod.launches - s0 if cfg.family == "ssm" else flash_mod.launches - f0
+    assert kernel == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, **F32)
+
+
+def test_engine_on_card_equals_cpu(cuda):
+    """The serving engine on the card emits the CPU engine's tokens (float32)."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), compute_dtype=torch.float32)
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        eng = StaticBatchEngine(cfg, p, ServeConfig(batch_slots=2, max_len=128),
+                                device=dev)
+        rng = np.random.default_rng(1)
+        for i in range(3):
+            eng.submit(Request(i, rng.integers(0, 255, 6 + 3 * i).astype(np.int32),
+                               max_new_tokens=5))
+        out[dev] = [r.output for r in eng.run()]
+    assert out["cuda"] == out["cpu"]

@@ -226,16 +226,28 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
     with pytest.raises(ValueError, match="CUDA"):
         ops.gp_readout(W, torch.zeros(3, device="meta"),
                        torch.zeros(16, device="meta"), torch.zeros(16, device="meta"))
+    q = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, q, q)
+    dt = torch.zeros((1, 8, 2), device="meta")
+    b = torch.zeros((1, 8, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_mix(q, dt, dt, b, b)
 
 
 def test_build_is_keyed_on_the_source():
     """Each source builds into its own library under build/repro_torch/,
     named by a hash of source and flags (a second run reuses it)."""
     assert _build.sources() == ["ei_classes", "ei_score", "ei_topk",
-                                "gp_readout"]
+                                "flash_attention", "gp_readout", "ssd"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR
         assert path.parent.parts[-2:] == ("build", "repro_torch")
         assert path.name.startswith(f"lib{name}-") and path == _build.library_path(name)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the kernels held bit-equal contract no multiply-adds; the two held to
+    # a tolerance may
+    for name in _build.sources():
+        assert ("-fmad=false" in _build.flags(name)) == (name not in _build.FMA_SOURCES)
+    assert _build.FMA_SOURCES == {"flash_attention", "ssd"}

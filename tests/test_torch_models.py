@@ -1,0 +1,426 @@
+"""The port's data plane (models, configs, kernels 5 and 6) against the JAX
+package's, on the CPU.
+
+The two kernels' plain versions (``ops.flash_attention`` and
+``ops.ssd_mix`` on CPU tensors) are held against the Pallas kernels run in
+interpret mode and against the jnp references, on the sweeps of
+``test_kernels.py``.  The models run the same weights: the reference's
+parameters, initialised by ``jax.random``, are carried across with
+``convert.model_params``, and the inputs are made with numpy from a seed.
+The full-sequence forward is held against the reference's Pallas path
+(``use_pallas=True``, and ``ssm.use_pallas=True`` for the SSD kernel).
+
+Tolerances are those of ``test_kernels.py``: 2e-4 (absolute and relative)
+in float32, where only the order of sums differs, and 5e-2 in bfloat16,
+where the two frameworks round intermediate results at other places.  The
+decode-after-prefill checks use ``test_models.py``'s 3e-2.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.sharding.rules import ParamSpec as JaxParamSpec  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    ModelConfig,
+    decode_step,
+    forward_logits_last,
+    forward_loss,
+    init_cache,
+    init_params,
+    model_specs,
+    prefill,
+)
+from repro_torch.models.spec import ParamSpec, tree_leaves  # noqa: E402
+
+F32 = dict(atol=2e-4, rtol=2e-4)
+BF16 = dict(atol=5e-2, rtol=5e-2)
+DECODE = dict(atol=3e-2, rtol=3e-2)
+DTYPES = {"float32": (jnp.float32, torch.float32, F32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
+
+
+@pytest.fixture(autouse=True)
+def cpu_path_never_launches():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    before = (flash_mod.launches, ssd_mod.launches)
+    yield
+    assert (flash_mod.launches, ssd_mod.launches) == before
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _both(a: np.ndarray, dtype: str):
+    """The same values in both frameworks (bfloat16 rounded from the same
+    float32 by both, to nearest even)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+# --- kernel 5: flash attention ------------------------------------------------
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,window,dtype", [
+    (128, 4, 4, 32, None, "float32"),     # MHA
+    (256, 8, 2, 16, None, "float32"),     # GQA 4:1
+    (128, 4, 1, 32, None, "float32"),     # MQA
+    (256, 4, 2, 32, 64, "float32"),       # sliding window
+    (128, 4, 2, 32, None, "bfloat16"),    # bf16
+])
+def test_flash_attention_plain_matches_pallas_and_ref(rng, S, Hq, Hkv, D, window, dtype):
+    B = 2
+    arrays = [rng.standard_normal((B, S, h, D)).astype(np.float32)
+              for h in (Hq, Hkv, Hkv)]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in arrays)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == tq.dtype and got.shape == (B, S, Hq, D)
+    got = got.float().numpy()
+    tol = DTYPES[dtype][2]
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got, _f32(pallas), **tol)
+    np.testing.assert_allclose(
+        got, _f32(jref.attention_ref(jq, jk, jv, causal=True, window=window)), **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_takes_any_length(rng, causal):
+    """S = 96 is no multiple of the Pallas kernel's 64 blocks: the port's
+    function takes it, and equals the reference's jnp oracle."""
+    q = rng.standard_normal((1, 96, 2, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 96, 1, 16)).astype(np.float32)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, k)),
+                              causal=causal, window=40)
+    want = jref.attention_ref(*(jnp.asarray(a) for a in (q, k, k)),
+                              causal=causal, window=40)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+# --- kernel 6: SSD ------------------------------------------------------------
+
+@pytest.mark.parametrize("S,H,P,N,chunk,dtype", [
+    (64, 2, 16, 8, 16, "float32"),
+    (128, 4, 32, 16, 32, "float32"),
+    (96, 3, 16, 8, 32, "float32"),
+    (64, 2, 16, 8, 64, "float32"),        # single chunk
+    (64, 2, 16, 8, 16, "bfloat16"),
+])
+def test_ssd_plain_matches_pallas_and_ref(rng, S, H, P, N, chunk, dtype):
+    B = 2
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, (B, S, H)).astype(np.float32)
+    la = np.broadcast_to(-dt * rng.uniform(0.5, 2.0, (1, 1, H)).astype(np.float32),
+                         (B, S, H)).copy()
+    b = rng.standard_normal((B, S, N)).astype(np.float32)
+    c = rng.standard_normal((B, S, N)).astype(np.float32)
+    (jx, tx), (jb, tb), (jc, tc) = (_both(a, dtype) for a in (x, b, c))
+    tdt, tla = torch.from_numpy(dt), torch.from_numpy(la)
+    got = ops.ssd_mix(tx, tdt, tla, tb, tc, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, P)
+    # the inputs are the same values in both; the mix is float32 throughout
+    pallas = jops.ssd_mix(jx, jnp.asarray(dt), jnp.asarray(la), jb, jc, chunk=chunk,
+                          interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32)
+    want = jref.ssd_ref(jx, jnp.asarray(dt), jnp.asarray(la), jb, jc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+# --- the models against the reference -----------------------------------------
+
+def _jax_cfg(arch: str, dtype: str):
+    """The reference's smoke config on its Pallas path, in ``dtype``."""
+    cfg = jax_smoke_config(arch)
+    ssm = cfg.ssm._replace(use_pallas=True) if cfg.ssm is not None else None
+    return dataclasses.replace(cfg, use_pallas=True, ssm=ssm,
+                               compute_dtype=DTYPES[dtype][0])
+
+
+def _fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _twins(arch: str, dtype: str, seed: int = 0):
+    """(reference cfg, params) and (port cfg, the same params as tensors)."""
+    jcfg = _jax_cfg(arch, dtype)
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
+    tcfg = convert.model_config(_fields(jcfg))
+    tparams = convert.model_params(jax.tree.map(np.asarray, jparams), "cpu")
+    return (jcfg, jparams), (tcfg, tparams)
+
+
+def _tokens(cfg, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+
+
+def _seq_len(arch: str) -> int:
+    # past h2o-danube's smoke window (64), so the window masks
+    return 96 if arch == "h2o-danube-3-4b" else 64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_forward_matches_reference_pallas_path(arch, dtype):
+    (jcfg, jparams), (tcfg, tparams) = _twins(arch, dtype)
+    assert tcfg.compute_dtype == DTYPES[dtype][1]
+    tokens, labels = _tokens(tcfg, 2, _seq_len(arch))
+    labels[0, :5] = -1                                   # masked positions
+    jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    tbatch = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+    tol = DTYPES[dtype][2]
+
+    got = forward_logits_last(tparams, tbatch, tcfg)
+    want = jmodel.forward_logits_last(jparams, jbatch, jcfg, None)
+    assert tuple(got.shape) == tuple(want.shape) and got.dtype == tcfg.compute_dtype
+    np.testing.assert_allclose(got.float().numpy(), _f32(want), **tol)
+
+    loss = forward_loss(tparams, tbatch, tcfg)
+    want_loss = jmodel.forward_loss(jparams, jbatch, jcfg, None)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    np.testing.assert_allclose(float(loss), float(want_loss), **tol)
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.float32)
+                                             if a.dtype == jnp.bfloat16 else a), tree)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_and_decode_match_reference(arch):
+    """prefill's last hidden state and cache, then one decode step's logits
+    and cache, equal the reference's (float32)."""
+    (jcfg, jparams), (tcfg, tparams) = _twins(arch, "float32", seed=1)
+    tokens, _ = _tokens(tcfg, 2, _seq_len(arch), seed=1)
+    S = tokens.shape[1]
+    jh, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :-1])},
+                                jcfg, None, max_len=S + 8)
+    th, tcache = prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :-1])},
+                         tcfg, max_len=S + 8)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **F32)
+    jtree, ttree = _np_tree(jcache), jax.tree.map(lambda t: t.numpy(), tcache)
+    assert jax.tree.structure(jtree) == jax.tree.structure(ttree)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **F32), jtree, ttree)
+
+    last = tokens[:, -1:]
+    jlog, jcache2 = jmodel.decode_step(jparams, {"tokens": jnp.asarray(last)},
+                                       jcache, jcfg, None)
+    tlog, tcache2 = decode_step(tparams, {"tokens": torch.from_numpy(last)},
+                                tcache, tcfg)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **F32)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **F32),
+                 _np_tree(jcache2), jax.tree.map(lambda t: t.numpy(), tcache2))
+    # the cache passed in is not modified
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(b, a), ttree,
+                 jax.tree.map(lambda t: t.numpy(), tcache))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bf16_prefill_and_decode_match_reference(arch):
+    """The same in bfloat16, the configs' own dtype: the port's prefill and
+    decode round where the reference's do (attention probabilities, the SSD
+    products), so hidden state, logits and caches agree to BF16."""
+    (jcfg, jparams), (tcfg, tparams) = _twins(arch, "bfloat16", seed=1)
+    tokens, _ = _tokens(tcfg, 2, _seq_len(arch), seed=1)
+    S = tokens.shape[1]
+    jh, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :-1])},
+                                jcfg, None, max_len=S + 8)
+    th, tcache = prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :-1])},
+                         tcfg, max_len=S + 8)
+    assert th.dtype == torch.bfloat16
+    np.testing.assert_allclose(th.float().numpy(), _f32(jh), **BF16)
+    jtree, ttree = _np_tree(jcache), _torch_np(tcache)
+    assert jax.tree.structure(jtree) == jax.tree.structure(ttree)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **BF16), jtree, ttree)
+    jlog, jcache2 = jmodel.decode_step(jparams, {"tokens": jnp.asarray(tokens[:, -1:])},
+                                       jcache, jcfg, None)
+    tlog, tcache2 = decode_step(tparams, {"tokens": torch.from_numpy(tokens[:, -1:])},
+                                tcache, tcfg)
+    np.testing.assert_allclose(tlog.float().numpy(), _f32(jlog), **BF16)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **BF16),
+                 _np_tree(jcache2), _torch_np(tcache2))
+
+
+def _torch_np(tree):
+    return jax.tree.map(lambda t: t.float().numpy() if t.is_floating_point()
+                        else t.numpy(), tree)
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen3-4b", 36), ("mamba2-1.3b", 48)])
+def test_bf16_decode_drift_matches_reference_at_depth(arch, layers):
+    """At the published depth (smoke widths) in bfloat16, decode after
+    prefill drifts from the Pallas-path forward in the port as in the
+    reference: the port's decode logits equal the reference's, and its
+    forward logits the reference's, to BF16; both drifts stay within
+    ``test_models.py``'s 3e-2 at these widths."""
+    jcfg = dataclasses.replace(_jax_cfg(arch, "bfloat16"), num_layers=layers)
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
+    tcfg = convert.model_config(_fields(jcfg))
+    tparams = convert.model_params(jax.tree.map(np.asarray, jparams), "cpu")
+    tokens, _ = _tokens(tcfg, 2, _seq_len(arch), seed=1)
+    S = tokens.shape[1]
+    jfwd = _f32(jmodel.forward_logits_last(jparams, {"tokens": jnp.asarray(tokens)},
+                                           jcfg, None))
+    _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :-1])},
+                               jcfg, None, max_len=S + 8)
+    jdec = _f32(jmodel.decode_step(jparams, {"tokens": jnp.asarray(tokens[:, -1:])},
+                                   jcache, jcfg, None)[0])
+    full = torch.from_numpy(tokens)
+    tfwd = forward_logits_last(tparams, {"tokens": full}, tcfg).float().numpy()
+    _, tcache = prefill(tparams, {"tokens": full[:, :-1]}, tcfg, max_len=S + 8)
+    tdec = decode_step(tparams, {"tokens": full[:, -1:]}, tcache, tcfg)[0].float().numpy()
+    np.testing.assert_allclose(tfwd, jfwd, **BF16)
+    np.testing.assert_allclose(tdec, jdec, **BF16)
+    np.testing.assert_allclose(jdec, jfwd, **DECODE)
+    np.testing.assert_allclose(tdec, tfwd, **DECODE)
+
+
+# --- the port on its own: decode after prefill == the kernel-path forward ------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_decode_matches_full_forward(arch):
+    """decode(prefill(x[:S-1]), x[S-1]) logits == full forward logits at S
+    (``test_models.py``'s case, in the configs' own bfloat16)."""
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, 1, device="cpu")
+    tokens, _ = _tokens(cfg, 2, 48)
+    full = torch.from_numpy(tokens)
+    want = forward_logits_last(params, {"tokens": full}, cfg)
+    _, cache = prefill(params, {"tokens": full[:, :-1]}, cfg, max_len=56)
+    got, _ = decode_step(params, {"tokens": full[:, -1:]}, cache, cfg)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **DECODE)
+
+
+def test_sliding_window_ring_buffer_decode():
+    """With a sliding window, decoding past the window through the ring
+    buffer matches the full forward (``test_models.py``'s case)."""
+    cfg = get_smoke_config("h2o-danube-3-4b")            # window 64
+    params = init_params(cfg, 2, device="cpu")
+    tokens, _ = _tokens(cfg, 1, 96)                      # > window
+    full = torch.from_numpy(tokens)
+    want = forward_logits_last(params, {"tokens": full}, cfg)
+    _, cache = prefill(params, {"tokens": full[:, :-1]}, cfg, max_len=104)
+    assert cache["attn"]["k"].shape[2] == 64            # the cache holds one window
+    got, _ = decode_step(params, {"tokens": full[:, -1:]}, cache, cfg)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **DECODE)
+
+
+def test_decode_from_an_empty_cache():
+    """init_cache then decode_step: finite logits of the vocabulary's size,
+    the length counters advanced, the cache's shapes kept."""
+    for arch in ("qwen3-4b", "mamba2-1.3b"):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, 0, device="cpu")
+        cache = init_cache(cfg, 2, 96, device="cpu")
+        logits, cache2 = decode_step(params, {"tokens": torch.ones((2, 1), dtype=torch.int32)},
+                                     cache, cfg)
+        assert logits.shape == (2, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+        key = "ssm" if cfg.family == "ssm" else "attn"
+        assert cache2[key]["length"].tolist() == [1] * cfg.num_layers
+        assert {k: v.shape for k, v in cache2[key].items()} == \
+            {k: v.shape for k, v in cache[key].items()}
+
+
+# --- configs and specs ----------------------------------------------------------
+
+def _shapes(specs, leaf_type):
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, leaf_type):
+            out[path] = (tuple(t.shape), getattr(t, "logical_axes", None))
+        elif isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+    walk(specs, ())
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_specs_and_param_count_match_reference(arch):
+    """Every full and smoke config: the same parameter tree (key paths,
+    shapes, logical axes) and ``param_count`` as the reference, from the
+    specs alone."""
+    for port, ref in ((get_config(arch), jax_config(arch)),
+                      (get_smoke_config(arch), jax_smoke_config(arch))):
+        assert _shapes(model_specs(port), ParamSpec) == \
+            _shapes(jmodel.model_specs(ref), JaxParamSpec)
+        assert port.param_count() == ref.param_count()
+        for f in dataclasses.fields(port):
+            if f.name not in ("compute_dtype", "param_dtype", "ssm", "moe"):
+                assert getattr(port, f.name) == getattr(ref, f.name), f.name
+
+
+def test_init_params_shapes_and_dtypes():
+    cfg = get_smoke_config("qwen3-8b")
+    params = init_params(cfg, 3, device="cpu")
+    assert _shapes(params, torch.Tensor).keys() == _shapes(model_specs(cfg), ParamSpec).keys()
+    for t, s in zip(tree_leaves(params, lambda x: isinstance(x, torch.Tensor)),
+                    tree_leaves(model_specs(cfg))):
+        assert tuple(t.shape) == s.shape and t.dtype == torch.float32
+    # a seed and a generator seeded alike draw the same parameters
+    again = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    assert torch.equal(params["blocks"]["attn"]["wq"], again["blocks"]["attn"]["wq"])
+    assert torch.equal(params["blocks"]["attn"]["q_norm"]["scale"],
+                       torch.ones_like(params["blocks"]["attn"]["q_norm"]["scale"]))
+
+
+def test_unported_architectures_raise():
+    for arch in ("zamba2-2.7b", "arctic-480b", "qwen3-moe-235b-a22b",
+                 "paligemma-3b", "musicgen-medium"):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            get_smoke_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-model")
+    for family in ("moe", "hybrid", "vlm", "audio"):
+        cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), family=family)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            model_specs(cfg)
+    assert set(ARCH_IDS) == {"mamba2-1.3b", "qwen3-4b", "qwen3-8b", "olmo-1b",
+                             "h2o-danube-3-4b"}
+
+
+def test_model_config_maps_the_reference_fields():
+    jcfg = _jax_cfg("mamba2-1.3b", "bfloat16")
+    tcfg = convert.model_config(_fields(jcfg))
+    assert isinstance(tcfg, ModelConfig)
+    assert tcfg.compute_dtype == torch.bfloat16 and tcfg.param_dtype == torch.float32
+    assert tcfg.ssm == get_smoke_config("mamba2-1.3b").ssm
+    assert not hasattr(tcfg, "use_pallas") and not hasattr(tcfg.ssm, "use_pallas")
+    cache = jmodel.init_cache(jcfg, 2, 16)
+    tcache = convert.model_params(jax.tree.map(np.asarray, cache), "cpu")
+    assert tcache["ssm"]["conv"].dtype == torch.bfloat16
+    assert tcache["ssm"]["length"].dtype == torch.int32
+
+
+# --- devices and wrappers ---------------------------------------------------------
+
+def test_entry_points_need_a_device(monkeypatch):
+    """device=None means the card: without one, every entry point raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen3-4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 16)
+    from repro_torch.serve import StaticBatchEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StaticBatchEngine(cfg, init_params(cfg, 0, device="cpu"))
