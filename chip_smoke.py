@@ -8,10 +8,14 @@ Run from the root of a checkout on a machine with one CUDA card and
 
   build          compile every kernel of ``src/repro_torch/kernels/csrc/`` for
                  sm_90a into ``build/repro_torch/`` (one nvcc per source, in
-                 parallel; a library already built from the same source is reused)
+                 parallel; a library already built from the same source is
+                 reused), and count the HGMMA (wgmma) instructions in the bf16
+                 flash library's SASS (``cuobjdump -sass``): none fails
   kernels        each kernel against its plain PyTorch version on the card,
                  at the paper's size and at service size, with CUDA-event times
-                 and the least time the card could take for the same work
+                 and the least time the card could take for the same work; the
+                 top-k kernel also alone (its device time under torch.profiler,
+                 and CUDA events around its C launch only) beside the wrapper
   episode_fig5   Algorithm 1 (mdmt, M = 4) on the Fig-5 problem, 50 tenants x
                  50 models, on the card and on the CPU: equal trial sequences,
                  and every decision launched the EIrate kernel once
@@ -31,7 +35,7 @@ Run from the root of a checkout on a machine with one CUDA card and
                  versions: (a) = (b) = (c) = CPU and (d) = (e) picks, and
                  eirate_topk launched once per shard per decision in (a);
                  then the top-k kernel held against its plain version on the
-                 inputs run (a) gave it
+                 inputs run (a) gave it, timed as in ``kernels``
   devplane_churn the elastic device plane (DevPlaneEngine) through a seeded
                  tenant + device churn trace (400 sessions, up to 5,000 live
                  models, 16 devices of two classes, joins, leaves and
@@ -47,10 +51,12 @@ Run from the root of a checkout on a machine with one CUDA card and
                  kernel held against its plain version on the inputs run (a)
                  gave it
   kernels_data_plane
-                 the flash attention kernel against its plain version at
+                 the flash attention kernels against their plain version at
                  qwen3-4b's shape (bf16 and float32), olmo-1b's MHA,
                  h2o-danube-3-4b's sliding window at S 8,192 and an S that no
-                 64 divides; the SSD kernel at mamba2-1.3b's shape (float32
+                 64 divides (bf16 takes the wgmma route, float32 the CUDA-core
+                 route; each case names and checks its route); the SSD
+                 kernel at mamba2-1.3b's shape (float32
                  and bf16 x/b/c), zamba2's and a single chunk; each with its
                  tolerance, CUDA-event times of kernel, plain version and the
                  one PyTorch call that computes the same function (flash:
@@ -60,8 +66,9 @@ Run from the root of a checkout on a machine with one CUDA card and
   model_forward  qwen3-4b, then mamba2-1.3b, at full width and depth, random
                  weights from a seed, bf16, B 4 x S 2,048: forward_loss and
                  forward_logits_last on the card, one flash launch a layer
-                 (36) or one SSD launch a layer (48) per forward and no other
-                 kernel; the kernel held against its plain version on layer
+                 (36, every one on the wgmma route) or one SSD launch a layer
+                 (48) per forward and no other kernel; the kernel held against
+                 its plain version on layer
                  0's own inputs; then a CPU twin of the first 2 layers at S 256
                  in float32, last logits equal to the card's
   serve          StaticBatchEngine on each model (4 requests, prompts of 100 to
@@ -83,6 +90,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -137,9 +145,11 @@ BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 # a data-plane kernel against its plain version, by the output's dtype:
 # |got - want| <= rtol |want| + atol_of_max max|want|.  float32: sums in
 # another order, 2e-4 of each.  bf16: both sides compute in float32 and
-# round once, so they are at most one bf16 ulp apart (at most 2^-7 of the
-# value): rtol 1e-2, and 1e-3 of max|want| where the value is near 0.  The
-# absolute part scales with max|want|, so no limit nears the values held.
+# round the output once (at most one bf16 ulp apart, at most 2^-7 of the
+# value), and the flash kernel's wgmma route also rounds the probabilities
+# to bf16 before P V (about 2^-9 of each term, mostly averaging out over
+# the keys): rtol 1e-2, and 1e-3 of max|want| where the value is near 0.
+# The absolute part scales with max|want|, so no limit nears the values held.
 DATA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
 FLASH_CASES = (                # name, B, S, Hq, Hkv, D, window, dtype
     ("qwen3_4b_bf16", 2, 2048, 32, 8, 128, None, torch.bfloat16),
@@ -194,6 +204,27 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int) -> float:
+    """Mean device milliseconds per launch of the kernel whose name holds
+    ``kernel``, under torch.profiler over ``iters`` calls of ``fn`` (after
+    one warm-up call): the kernel alone, without host dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    # the profiler may drop a few of the launches' records: the mean is over
+    # those it kept
+    check(len(rows) == 1 and 0 < rows[0].count <= iters
+          and rows[0].device_time_total > 0.0,
+          f"profiler: {len(rows)} kernels named {kernel!r}, counts "
+          f"{[e.count for e in rows]} for {iters} calls")
+    return rows[0].device_time_total / rows[0].count / 1e3
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -261,8 +292,11 @@ def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
 def topk_check(name, args, k, ei_score, ref, timed=True):
     """The top-k kernel against its plain version on the same card inputs:
     values bit-equal and ids equal, every entry; with ``timed``, CUDA-event
-    times of both and the bound (the EIrate pass plus kb rounds of compares
-    over the padded columns, 8 bytes written per candidate)."""
+    times of both (the wrapper's whole call: checks, buffers, one launch),
+    the kernel alone (``kernel_ms``: its device time under torch.profiler;
+    ``c_launch_ms``: CUDA events around its C launch only, buffers made
+    once) and the bound (the EIrate pass plus kb rounds of compares over
+    the padded columns, 8 bytes written per candidate)."""
     got_v, got_i = ei_score.eirate_topk(*args, k=k)
     want_v, want_i = ref.eirate_topk_ref(*args, k=k)
     torch.cuda.synchronize()
@@ -280,8 +314,15 @@ def topk_check(name, args, k, ei_score, ref, timed=True):
     padded = -(-n // bn) * bn
     pairs, b_ms, b_by = ei_bound(args, extra_ops=kb * padded, out_bytes=8 * k)
     iters = 200 if n * N <= 10**6 else 20
+    buffers = ei_score.topk_buffers(n, k, args[0].device)
+
+    def c_launch():
+        ei_score.topk_launch(*args, k, buffers)
+
     rec.update(member_pairs=pairs,
                ms=cuda_ms(lambda: ei_score.eirate_topk(*args, k=k), iters),
+               kernel_ms=device_ms(c_launch, "eirate_topk_kernel", iters),
+               c_launch_ms=cuda_ms(c_launch, iters),
                plain_ms=cuda_ms(lambda: ref.eirate_topk_ref(*args, k=k),
                                 max(iters // 10, 3)),
                bound_ms=b_ms, bound_by=b_by)
@@ -904,7 +945,12 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
     inputs, to DATA_TOL; CUDA-event times of both and of
     scaled_dot_product_attention; the bound counts each input read and the
     output written once, and 4 D flops per unmasked (query, key) pair."""
+    route = flash_mod.route(q.dtype)
+    before = dict(flash_mod.launches_by_route)
     got = flash_mod.flash_attention(q, k, v, window=window)
+    taken = {r: c - before[r] for r, c in flash_mod.launches_by_route.items()}
+    check(taken == {r: int(r == route) for r in taken},
+          f"flash_attention {name}: {q.dtype} took the routes {taken}, not {route}")
     want = ref.attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
     agreement = held(f"flash_attention {name}", got, want)
@@ -926,7 +972,7 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
     pairs = int((rows + 1 if window is None else np.minimum(rows + 1, window)).sum())
     nbytes = q.element_size() * 2 * B * S * D * (Hq + Hkv)
     rec = dict(case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window,
-               dtype=str(q.dtype).replace("torch.", ""), **agreement,
+               dtype=str(q.dtype).replace("torch.", ""), route=route, **agreement,
                unmasked_pairs=pairs * B * Hq,
                ms=auto_ms(lambda: flash_mod.flash_attention(q, k, v, window=window)),
                plain_ms=auto_ms(lambda: ref.attention_ref(q, k, v, window=window),
@@ -1036,19 +1082,26 @@ def model_forward_phase(arch, seed, dev, counters):
             ("forward_loss", forward_loss, {"tokens": tokens, "labels": labels}),
             ("forward_logits_last", forward_logits_last, {"tokens": tokens})):
         reset(counters)
+        flash_mod.reset_launches()
         t0 = time.perf_counter()
         out = fn(params, batch, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read(counters)
+        by_route = dict(flash_mod.launches_by_route)
         check(launches[kernel] == cfg.num_layers
               and sum(launches.values()) == cfg.num_layers,
               f"model_forward {arch} {fn_name}: launches {launches}, expected "
               f"{cfg.num_layers} of {kernel} and no other kernel")
+        # bf16 compute: every flash launch takes the wgmma route
+        want_routes = ({"wgmma": cfg.num_layers, "cuda_cores": 0}
+                       if kernel == "flash_attention" else {"wgmma": 0, "cuda_cores": 0})
+        check(by_route == want_routes, f"model_forward {arch} {fn_name}: flash "
+              f"launches by route {by_route}, expected {want_routes}")
         check(bool(torch.isfinite(out).all()), f"model_forward {arch} {fn_name}: "
               "non-finite output")
         runs[fn_name] = dict(wall_s=wall, tokens_per_s=MODEL_BATCH * MODEL_SEQ / wall,
-                             launches=launches)
+                             launches=launches, flash_launches_by_route=by_route)
         if fn_name == "forward_loss":
             # the value is the random init's (whose fan-in counts the stacked
             # layer axis, as the reference's does); the CPU twin below holds it
@@ -1107,6 +1160,8 @@ def model_forward_phase(arch, seed, dev, counters):
                logits_last_abs_max=float(last.float().abs().max()),
                runs=runs, kernel=kernel,
                launches_per_forward=runs["forward_logits_last"]["launches"][kernel],
+               flash_launches_by_route=runs["forward_logits_last"][
+                   "flash_launches_by_route"],
                layer0_kernel_case=layer0_case,
                cpu_twin=dict(layers=TWIN_LAYERS, batch=TWIN_BATCH, seq=TWIN_SEQ,
                              dtype="float32", tolerance=TWIN_TOL,
@@ -1221,6 +1276,15 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
                 phase_s=time.perf_counter() - t_phase)
 
 
+def sass_count(source: str, opcode: str, _build) -> int:
+    """Instructions of ``opcode`` in the SASS of ``csrc/<source>.cu``'s
+    library (``cuobjdump -sass`` from the CUDA toolkit)."""
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1248,10 +1312,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     per_source = _build.build()
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = {name: [ln.strip() for ln in log.splitlines()
+                   if "Used" in ln and "registers" in ln or "spill" in ln]
             for name, log in _build.BUILD_LOG.items()}
+    hgmma = sass_count("flash_attention_sm90", "HGMMA", _build)
+    check(hgmma > 0, "build: the bf16 flash library holds no HGMMA instruction")
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source=per_source, ptxas=regs,
+              flash_attention_sm90_hgmma_instructions=hgmma,
               libraries=[str(_build.library_path(s).relative_to(ROOT))
                          for s in _build.sources()]))
 
@@ -1342,7 +1410,9 @@ def main() -> int:
               "recurrence); |got - want| <= rtol |want| + atol, atol a share "
               "of max |want|: float32 output rtol 2e-4 and 2e-4 of max "
               "|want|; bf16 output (both sides round a float32 result once, "
-              "at most one bf16 ulp apart) rtol 1e-2 and 1e-3 of max |want|",
+              "at most one bf16 ulp apart; the flash kernel's wgmma route "
+              "also rounds P to bf16 before P V, about 2^-9 of each term) "
+              "rtol 1e-2 and 1e-3 of max |want|",
               flash_attention=flash_cases, ssd=ssd_cases,
               phase_s=time.perf_counter() - t0))
 
@@ -1375,10 +1445,17 @@ def main() -> int:
                                "src/repro/kernels/ei_score.py:235"),
                "eirate_classes": ("src/repro_torch/kernels/csrc/ei_classes.cu",
                                   "src/repro/kernels/ei_score.py:301"),
-               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+               # layer 0 is bf16: the wgmma route (float32 takes flash_attention.cu)
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                                    "src/repro/kernels/flash_attention.py:118"),
                "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
                        "src/repro/kernels/ssd.py:92")}
+    # the top-k kernel alone beside its wrapper's call; the flash routes
+    extra = {"eirate_topk": {key: head["eirate_topk"][key]
+                             for key in ("kernel_ms", "c_launch_ms")},
+             "flash_attention": dict(
+                 launches_by_route=forward["qwen3-4b"]["flash_launches_by_route"],
+                 float32_route_source="src/repro_torch/kernels/csrc/flash_attention.cu")}
     cases = {"eirate": ei_cases, "gp_readout": ro_cases,
              "eirate_topk": topk_cases + rec["main_path_inputs"],
              "eirate_classes": classes_cases + dp["main_path_inputs"],
@@ -1394,7 +1471,8 @@ def main() -> int:
                                       for c in cases[name]),
         ms=head[name]["ms"], plain_ms=head[name]["plain_ms"],
         bound_ms=head[name]["bound_ms"], bound_by=head[name]["bound_by"],
-        library_ms=head[name].get("library_ms"), shape_of_times=head[name]["case"])
+        library_ms=head[name].get("library_ms"), shape_of_times=head[name]["case"],
+        **extra.get(name, {}))
         for name in sources]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

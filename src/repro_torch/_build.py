@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 #: -fmad=false, so each product and sum rounds on its own exactly as the
 #: plain PyTorch versions' separate ops do (the EIrate kernels and the
 #: readout are held bit-equal).
-FMA_SOURCES = frozenset({"flash_attention", "ssd"})
+FMA_SOURCES = frozenset({"flash_attention", "flash_attention_sm90", "ssd"})
 
 #: ``nvcc`` output (``-Xptxas -v``: registers, spills) of this process's builds
 BUILD_LOG: dict[str, str] = {}

@@ -1,7 +1,8 @@
 // The per-column EIrate body shared by the EIrate kernel (ei_score.cu), the
 // EIrate top-k kernel (ei_topk.cu) and the class-axis EIrate kernel
-// (ei_classes.cu): each computes a column's tenant sum with ei_total_column,
-// built with the same flags, so all three rank the very same floats.
+// (ei_classes.cu): each computes a column's tenant sum from ei_term in
+// ascending tenant order (ei_total_column), built with the same flags, so
+// all three rank the very same floats.
 //
 //   EI_i(x)  = sigma(x) * tau((mu(x) - best_i) / sigma(x)),  tau(u) = u Phi(u) + phi(u)
 //            = max(mu(x) - best_i, 0)                         when sigma(x) == 0
@@ -67,8 +68,17 @@ __device__ __forceinline__ float tau(float u) {
   return ftz(ftz(u * ndtr(u)) + pdf);
 }
 
+// EI_i(x) of one (tenant, column) pair: m = mu[x], best_i = best[i], safe =
+// sigma[x] where sigma[x] > 0 (positive), else 1.
+__device__ __forceinline__ float ei_term(float m, float safe, bool positive,
+                                         float best_i) {
+  const float diff = m - best_i;
+  return positive ? ftz(safe * tau(diff / safe)) : fmaxf(diff, 0.0f);
+}
+
 // The tenant sum of column x of an (N, n) problem: sum_i member[i, x] *
-// EI_i(x), tenants in ascending order, non-members skipped.
+// EI_i(x), tenants in ascending order, non-members skipped.  (The top-k
+// kernel spreads the terms over threads and adds them in this order.)
 __device__ __forceinline__ float ei_total_column(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ best,
@@ -80,14 +90,7 @@ __device__ __forceinline__ float ei_total_column(
   float total = 0.0f;
   for (int i = 0; i < N; ++i) {
     if (!membership[static_cast<size_t>(i) * n + x]) continue;
-    const float diff = m - best[i];
-    float e;
-    if (positive) {
-      e = ftz(safe * tau(diff / safe));
-    } else {
-      e = fmaxf(diff, 0.0f);
-    }
-    total = total + e;
+    total = total + ei_term(m, safe, positive, best[i]);
   }
   return total;
 }

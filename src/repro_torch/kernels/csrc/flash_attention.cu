@@ -1,7 +1,9 @@
-// Causal GQA flash attention, forward, for Hopper, sm_90a.
+// Causal GQA flash attention, forward, float32 inputs, for Hopper, sm_90a.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
-// (pallas_call at line 118; body _flash_kernel).
+// (pallas_call at line 118; body _flash_kernel), for float32 q, k, v.  bf16
+// inputs take the tensor-core kernel of flash_attention_sm90.cu; the
+// wrapper (kernels/flash_attention.py) chooses by dtype.
 //
 //   out[b, q, h] = sum_k p[q, k] v[b, k, h // G] / max(sum_k p[q, k], 1e-30)
 //   p[q, k]      = exp(s[q, k] - max_k s[q, k]) where the mask allows (q, k),
@@ -9,15 +11,13 @@
 //
 // with the causal mask (k <= q) and, with a window W > 0, k > q - W; G is
 // Hq / Hkv.  Inputs in the (B, S, H, D) layout with any strides (unit
-// stride along D), float32 or bfloat16; everything is computed in float32
-// and the output is written in the inputs' type.
+// stride along D), float32; everything is computed in float32.
 //
 // Bound on an H100: at the models' shapes (S 2,048, D 128) the work is
 // 4 D flops for every unmasked (query, key) pair, about 1.4e11 flops per
 // qwen3-4b layer at B 4 against 67 MB moved, so the kernel is bound by
 // operations: about 2 ms at the float32 rate of the CUDA cores (67
-// TFLOP/s), 0.14 ms at the bf16 tensor-core rate that a later kernel with
-// wgmma would aim for.  This one is the simple kernel on the CUDA cores.
+// TFLOP/s).  This one is the simple kernel on the CUDA cores.
 //
 // Design: one block of 256 threads (16 x 16) per (batch * query head,
 // tile of 64 query rows), the heaviest causal tiles launched first.  The
@@ -34,7 +34,6 @@
 // causal mask or the window leaves empty are skipped, and the sum is
 // clamped at 1e-30.  Any S: the ragged last tiles are masked.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,25 +44,19 @@ constexpr int kThreads = 256;
 constexpr int kPs = kCols + 1;  // row stride of the probability tile
 constexpr float kNegLarge = -1e30f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 struct Strides {
   long long b, s, h;
 };
 
 // rows [row0, row0 + 64) of head `head` of t into a 64 x ld tile (0 past S)
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* t, Strides st,
+__device__ __forceinline__ void load_tile(float* dst, const float* t, Strides st,
                                           int b, int head, int row0, int S,
                                           int D, int ld) {
-  const T* base = t + b * st.b + head * st.h;
+  const float* base = t + b * st.b + head * st.h;
   for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, d = idx - r * D;
     const int row = row0 + r;
-    dst[r * ld + d] = row < S ? to_f(base[row * st.s + d]) : 0.0f;
+    dst[r * ld + d] = row < S ? base[row * st.s + d] : 0.0f;
   }
 }
 
@@ -79,10 +72,10 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int Hq,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int S, int Hq,
              int Hkv, int D, int ld, Strides qst, Strides kst, Strides vst,
              Strides ost, int causal, int window, float scale) {
   extern __shared__ float smem[];
@@ -187,63 +180,53 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    T* row = out + b * ost.b + qpos * ost.s + h * ost.h;
+    float* row = out + b * ost.b + qpos * ost.s + h * ost.h;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) put(row + d, o[i][j] * inv);
+      if (d < D) row[d] = o[i][j] * inv;
     }
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
            int Hq, int Hkv, int D, Strides qst, Strides kst, Strides vst,
            Strides ost, int causal, int window, float scale, cudaStream_t stream) {
   const int ld = D | 1;  // odd: a half warp's 16 rows fall in 16 banks
   const size_t smem = sizeof(float) * (size_t(kRows + kCols) * ld + size_t(kRows) * kPs);
-  auto kernel = flash_kernel<T, NJ>;
+  auto kernel = flash_kernel<NJ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kRows - 1) / kRows, B * Hq);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, Hq, Hkv, D, ld, qst, kst, vst, ost, causal, window,
-      scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, Hq, Hkv, D, ld, qst,
+      kst, vst, ost, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int S,
-             int Hq, int Hkv, int D, Strides qst, Strides kst, Strides vst,
-             Strides ost, int causal, int window, float scale, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 4>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
-                        window, scale, stream);
-  if (D <= 128)
-    return launch<T, 8>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
-                        window, scale, stream);
-  return launch<T, 16>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
-                       window, scale, stream);
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16.  D <= 256, Hq a multiple of Hkv, S >= 1;
-// the wrapper checks them.  strides: (b, s, h) of q, k, v, out in elements.
-// window <= 0: no window.  Returns the cudaError_t of the launch.
+// float32 q (B, S, Hq, D), k and v (B, S, Hkv, D).  D <= 256, Hq a multiple
+// of Hkv, S >= 1; the wrapper checks them.  strides: (b, s, h) of q, k, v,
+// out in elements.  window <= 0: no window.  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int dtype, int B,
-    int S, int Hq, int Hkv, int D, long long qb, long long qs, long long qh,
-    long long kb, long long ks, long long kh, long long vb, long long vs,
-    long long vh, long long ob, long long os, long long oh, int causal,
-    int window, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
+    int Hkv, int D, long long qb, long long qs, long long qh, long long kb,
+    long long ks, long long kh, long long vb, long long vs, long long vh,
+    long long ob, long long os, long long oh, int causal, int window, float scale,
+    void* stream) {
   const Strides qst{qb, qs, qh}, kst{kb, ks, kh}, vst{vb, vs, vh}, ost{ob, os, oh};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst,
-                                   ost, causal, window, scale, st);
-  return dispatch<float>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
-                         window, scale, st);
+  if (D <= 64)
+    return launch<4>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
+                     window, scale, st);
+  if (D <= 128)
+    return launch<8>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
+                     window, scale, st);
+  return launch<16>(q, k, v, out, B, S, Hq, Hkv, D, qst, kst, vst, ost, causal,
+                    window, scale, st);
 }

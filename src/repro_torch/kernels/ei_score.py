@@ -5,8 +5,9 @@ the kernel (``csrc/ei_score.cu``) runs one thread per model column over
 uint8 membership; its plain version is ``ref.eirate_ref``.  ``eirate_topk``
 is the counterpart of ``eirate_topk_pallas``: the kernel
 (``csrc/ei_topk.cu``) scores each block of columns with the same per-column
-code and keeps the block's top-k; its plain version is
-``ref.eirate_topk_ref``.  ``eirate_classes`` is the counterpart of
+sum, keeps the block's top-k and merges the blocks' candidates to the
+global top-k in one launch; its plain version is ``ref.eirate_topk_ref``.
+``eirate_classes`` is the counterpart of
 ``eirate_classes_pallas``: the kernel (``csrc/ei_classes.cu``) sums the
 tenant EI of each column once and divides it by every device class's cost
 row; its plain version is ``ref.eirate_classes_ref``.  ``ops`` sends CPU
@@ -48,9 +49,23 @@ def _launcher():
 def _topk_launcher():
     from .. import _build
     fn = _build.load("ei_topk").eirate_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+#: (device index, stream) -> the top-k kernel's ticket counter: one zeroed
+#: int32 per stream, which the last block of every launch sets back to 0.
+#: Launches on one stream run one after another, so each finds it at 0.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
 
 
 @functools.cache
@@ -114,38 +129,55 @@ def eirate(mu, sigma, best, membership, cost, selected) -> torch.Tensor:
     return out
 
 
+def topk_buffers(n: int, k: int, dev: torch.device):
+    """What one top-k launch writes: the block candidates' scratch (values,
+    indices) and the outputs (values (k,) float32, indices (k,) int32)."""
+    bn = min(ref.BLOCK_MODELS, max(n, 1))
+    m = -(-n // bn) * min(k, bn)
+    scratch = torch.empty(2 * m, dtype=torch.int32, device=dev)
+    return (scratch[:m].view(torch.float32), scratch[m:],
+            torch.empty(k, dtype=torch.float32, device=dev),
+            torch.empty(k, dtype=torch.int32, device=dev))
+
+
+def topk_launch(mu, sigma, best, membership, cost, selected, k, buffers) -> None:
+    """One launch of the top-k kernel into ``buffers`` (:func:`topk_buffers`)
+    on the current stream, with no check and no count: the wrapper's launch,
+    also timed alone by ``chip_smoke.py``."""
+    N, n = membership.shape
+    bn = min(ref.BLOCK_MODELS, max(n, 1))
+    dev = mu.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _topk_launcher()(
+            mu.data_ptr(), sigma.data_ptr(), best.data_ptr(),
+            membership.data_ptr(), cost.data_ptr(), selected.data_ptr(),
+            *(b.data_ptr() for b in buffers), _ticket(dev, stream).data_ptr(),
+            N, n, bn, min(k, bn), k, stream)
+    if err != 0:
+        raise RuntimeError(f"eirate_topk kernel launch failed: cudaError {err}")
+
+
 def eirate_topk(mu, sigma, best, membership, cost, selected, *, k: int = 4):
     """(values (k,) float32, global indices (k,) int32) of the EIrate top-k,
-    equal values in ascending index, from the top-k kernel.
+    equal values in ascending index, from one launch of the top-k kernel.
 
-    Inputs as :func:`eirate`.  The kernel emits kb = min(k, bn) candidates
-    per block of bn = min(256, n) columns; the merge to the global top-k
-    (``ref.merge_block_topk``: mask index >= n, pad to k, stable sort) runs
-    as PyTorch ops on the same stream, as the TPU version's runs outside
-    its kernel."""
+    Inputs as :func:`eirate`.  The kernel scores blocks of bn = min(256, n)
+    columns, keeps kb = min(k, bn) candidates per block and merges them to
+    the global top-k in its last block as ``ref.merge_block_topk`` does
+    (mask index >= n, pad to k, stable order); its outputs are returned as
+    they are, with no PyTorch op after the launch."""
     global topk_launches
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     N, n = _check("eirate_topk", mu, sigma, best, membership, cost, selected)
-    dev = mu.device
-    bn = min(ref.BLOCK_MODELS, max(n, 1))
-    kb = min(k, bn)
-    nb = -(-n // bn)
-    topv = torch.empty(nb * kb, dtype=torch.float32, device=dev)
-    topi = torch.empty(nb * kb, dtype=torch.int32, device=dev)
-    if n > 0:
-        fn = _topk_launcher()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(mu.data_ptr(), sigma.data_ptr(), best.data_ptr(),
-                     membership.data_ptr(), cost.data_ptr(),
-                     selected.data_ptr(), topv.data_ptr(), topi.data_ptr(),
-                     N, n, bn, kb, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"eirate_topk kernel launch failed: cudaError {err}")
-        topk_launches += 1
-    return ref.merge_block_topk(topv, topi, n, k)
+    if n == 0:                        # nothing to score: k pads, no launch
+        empty = torch.empty(0, dtype=torch.float32, device=mu.device)
+        return ref.merge_block_topk(empty, empty.int(), 0, k)
+    buffers = topk_buffers(n, k, mu.device)
+    topk_launch(mu, sigma, best, membership, cost, selected, k, buffers)
+    topk_launches += 1
+    return buffers[2], buffers[3]
 
 
 def eirate_classes(mu, sigma, best, membership, cost_matrix,

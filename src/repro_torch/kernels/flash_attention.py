@@ -1,13 +1,22 @@
-"""Causal GQA flash attention (forward): the CUDA kernel's wrapper.
+"""Causal GQA flash attention (forward): the wrapper of its two CUDA kernels.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas``.
-The kernel (``csrc/flash_attention.cu``) streams key and value tiles past
-a tile of 64 query rows with a running max and sum in float32, and skips
-the tiles that the causal mask or the window leaves empty; its plain
-version is ``ref.attention_ref``.  Unlike the TPU kernel it takes any
-sequence length (the Pallas ``S % block`` assert is a tiling rule, not part
-of the function).  ``ops.flash_attention`` sends CPU tensors to the plain
-version and CUDA tensors here, where they launch the kernel or raise.
+The route is chosen by the inputs' dtype alone:
+
+- bfloat16 q, k, v take ``"wgmma"`` (``csrc/flash_attention_sm90.cu``):
+  TMA streams 128-row key and value tiles past 128 query rows, both
+  products run on the tensor cores (wgmma, float32 accumulators), the
+  online softmax runs on the accumulators in registers, and the
+  probabilities are rounded to bf16 for P V.  TMA needs 16-byte aligned
+  base addresses and strides; other inputs raise.
+- float32 q, k, v take ``"cuda_cores"`` (``csrc/flash_attention.cu``):
+  64-row tiles, float32 multiply-adds on the CUDA cores.
+
+Both skip the tiles that the causal mask or the window leaves empty, and
+take any sequence length (the Pallas ``S % block`` assert is a tiling rule,
+not part of the function).  Their plain version is ``ref.attention_ref``.
+``ops.flash_attention`` sends CPU tensors to it and CUDA tensors here,
+where they launch a kernel or raise.
 """
 
 from __future__ import annotations
@@ -20,32 +29,72 @@ import torch
 
 #: kernel launches since the last reset (launches only, never the CPU path)
 launches = 0
+#: the same launches by route: "wgmma" (bf16), "cuda_cores" (float32)
+launches_by_route = {"wgmma": 0, "cuda_cores": 0}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype -> (route, source under csrc/, C entry point)
+ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_sm90",
+                           "flash_attention_sm90_launch"),
+          torch.float32: ("cuda_cores", "flash_attention",
+                          "flash_attention_launch")}
 MAX_HEAD_DIM = 256
+#: what the wgmma route's C function returns beyond cudaError_t
+_SM90_ERRORS = {10000: "a base address or stride is not 16-byte aligned (TMA)",
+                10001: "the CUDA runtime found no cuTensorMapEncodeTiled"}
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for route in launches_by_route:
+        launches_by_route[route] = 0
 
 
 @functools.cache
-def _launcher():
+def _launcher(dtype: torch.dtype):
     from .. import _build
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    _, source, entry = ROUTES[dtype]
+    fn = getattr(_build.load(source), entry)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernel that inputs of ``dtype`` take."""
+    if dtype not in ROUTES:
+        raise TypeError(f"q, k and v must be float32 or bfloat16, got {dtype}")
+    return ROUTES[dtype][0]
+
+
 def _strides(t: torch.Tensor) -> list[int]:
-    return [t.stride(0), t.stride(1), t.stride(2)]
+    """(b, s, h) element strides; a dimension of size 1 is never stepped, so
+    its stride is given as 8 (16 bytes in bf16), which TMA accepts."""
+    return [t.stride(i) if t.shape[i] > 1 else 8 for i in range(3)]
+
+
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    """The wgmma route's TMA copies need a 16-byte aligned base and (b, s, h)
+    strides of a multiple of 16 bytes."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}'s base address is not 16-byte aligned, which "
+                         f"the bf16 (TMA) route needs")
+    bad = [s for s in _strides(t) if (s * t.element_size()) % 16]
+    if bad:
+        raise ValueError(f"{name} has strides {t.stride()}: the bf16 (TMA) route "
+                         f"needs (b, s, h) strides of a multiple of 16 bytes")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
-    """(B, S, Hq, D) attention output in q's dtype, from the kernel.
+    """(B, S, Hq, D) attention output in q's dtype, from the kernel of the
+    dtype's route.
 
     q (B, S, Hq, D), k and v (B, S, Hkv, D), all float32 or all bfloat16 on
-    one CUDA device, unit stride along D (other strides are free); Hq a
-    multiple of Hkv, D <= 256.  ``window`` (> 0) keeps keys k > q - window."""
+    one CUDA device, unit stride along D; Hq a multiple of Hkv, D <= 256;
+    bfloat16 also needs 16-byte aligned bases and (b, s, h) strides.
+    ``window`` (> 0) keeps keys k > q - window."""
     global launches
     dev = q.device
     if dev.type != "cuda":
@@ -55,8 +104,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"q, k and v must be float32 or bfloat16, got {q.dtype}")
+    name = route(q.dtype)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B, S, Hq, D) and k, v (B, S, Hkv, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -70,22 +118,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
         raise ValueError(f"head dim {D} is outside the kernel's 1..{MAX_HEAD_DIM}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for tn, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
-            raise ValueError(f"{name} must have unit stride along D, got {t.stride()}")
+            raise ValueError(f"{tn} must have unit stride along D, got {t.stride()}")
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
     if B * S * Hq == 0:
         return out
     if B * Hq > 65535:
         raise ValueError(f"B * Hq = {B * Hq} exceeds the kernel's grid (65,535)")
-    fn = _launcher()
+    if name == "wgmma":
+        for tn, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(tn, t)
+    fn = _launcher(q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], B, S, Hq, Hkv, D,
+                 B, S, Hq, Hkv, D,
                  *_strides(q), *_strides(k), *_strides(v), *_strides(out),
                  int(causal), window or 0, 1.0 / math.sqrt(D), stream)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+        why = _SM90_ERRORS.get(err) or (
+            f"cuTensorMapEncodeTiled refused a map: CUresult {err - 10002}"
+            if err > 10002 else f"cudaError {err}")
+        raise RuntimeError(f"flash attention kernel ({name}) launch failed: {why}")
     launches += 1
+    launches_by_route[name] += 1
     return out

@@ -115,8 +115,9 @@ def topk_first(values: torch.Tensor, k: int):
 def merge_block_topk(topv, topi, n: int, k: int):
     """The global top-k from per-block candidates (flat, block-major):
     candidates at index >= n are masked to -1e30, too few candidates are
-    padded with (-1e30, 0), then :func:`topk_first`.  Shared by the kernel's
-    wrapper and :func:`eirate_topk_ref`."""
+    padded with (-1e30, 0), then :func:`topk_first`.  The top-k kernel's
+    last block does this merge in its own code; :func:`eirate_topk_ref`
+    (and the kernel's wrapper when n = 0) call this one."""
     v = torch.where(topi < n, topv, torch.full_like(topv, NEG_LARGE))
     i = topi
     if v.shape[0] < k:

@@ -12,10 +12,13 @@ functions taken in double and rounded once), so both are held bit-equal.
 The data plane's two (flash attention, the SSD scan) sum in other orders
 than their plain versions (full-matrix attention, the per-step
 recurrence): 2e-4 (absolute and relative) in float32.  Where the output
-is bfloat16 both sides compute in float32 and round once, so they are at
-most one bf16 ulp apart (at most 2^-7 of the value): rtol 1e-2, and an
-atol of 1e-3 of the largest |want| for values near 0.  The card's float32
-model forward is held to the CPU's at 2e-4 too.
+is bfloat16 both sides compute in float32 and round the output once (at
+most one bf16 ulp apart, at most 2^-7 of the value), and the flash
+kernel's bf16 (wgmma) route also rounds the probabilities to bf16 before
+P V (about 2^-9 of each term): rtol 1e-2, and an atol of 1e-3 of the
+largest |want| for values near 0.  The card's float32 model forward is
+held to the CPU's at 2e-4 too.  Flash attention takes its wgmma route for
+bf16 inputs and its CUDA-core route for float32; the tests count both.
 """
 
 import dataclasses
@@ -71,12 +74,29 @@ def test_eirate_kernel_matches_plain(cuda, rng, n, N):
 @pytest.mark.parametrize("n,N,k,layout", [
     (2500, 50, 4, "random"), (513, 100, 16, "random"),   # n not a multiple of 256
     (600, 3, 6, "tie"), (3, 2, 8, "random"),              # k > n
+    (700, 128, 8, "fewlive"),      # blocks with fewer live columns than k
+    (200, 1, 4, "random"),         # n < 256, one tenant
+    (40, 3, 64, "random"),         # n < k: pads
+    (1024, 4, 5, "tieblocks"),     # equal values in different blocks
+    (2048, 128, 4, "disjoint"),    # a churn shard's shape
+    (1000, 1000, 4, "random"),     # N 1,000
 ])
 def test_eirate_topk_kernel_matches_plain(cuda, rng, n, N, k, layout):
     args = _ei_inputs(rng, n, N, cuda)
     if layout == "tie":
         for t, fill in zip(args, (0.0, 1.0, 0.0, True, 1.0, False)):
             t.fill_(fill)
+    if layout == "fewlive":
+        args[5].fill_(True)
+        args[5][::97] = False
+    if layout == "tieblocks":      # the top column 10 and its twins in blocks 1-3
+        twins = [10, 300, 700, 1000]
+        args[0][twins], args[4][twins], args[5][twins] = 50.0, 0.3, False
+        args[1][twins] = float(args[1][10])
+        args[3][:, twins] = True
+    if layout == "disjoint":
+        args[3].zero_()
+        args[3][torch.arange(n) * N // n, torch.arange(n)] = True
     before = (ei_score.topk_launches, ei_score.launches)
     v, i = ops.eirate_topk(*args, k=k)
     torch.cuda.synchronize()
@@ -86,6 +106,8 @@ def test_eirate_topk_kernel_matches_plain(cuda, rng, n, N, k, layout):
     assert torch.equal(i, wi)
     if layout == "tie":
         assert i.tolist() == list(range(k))
+    if layout == "tieblocks":
+        assert i[:4].tolist() == [10, 300, 700, 1000] and bool((v[:4] == v[0]).all())
     live = v > -1e29
     assert torch.equal(ops.eirate(*args)[i[live].long()], v[live])
 
@@ -247,7 +269,9 @@ F32 = dict(atol=2e-4, rtol=2e-4)
 
 def _assert_close(got, want):
     """F32 for float32 output; for bf16 output rtol 1e-2 (one bf16 ulp is at
-    most 2^-7 of the value) and an atol of 1e-3 of max |want|."""
+    most 2^-7 of the value; the wgmma route's bf16 P adds about 2^-9 a
+    term, mostly averaging out over the keys) and an atol of 1e-3 of max
+    |want|."""
     if want.dtype != torch.bfloat16:
         torch.testing.assert_close(got, want, **F32)
         return
@@ -276,6 +300,66 @@ def test_flash_attention_kernel_matches_plain(cuda, rng, B, S, Hq, Hkv, D, windo
     assert flash_mod.launches == before + 1 and got.dtype == dtype
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     _assert_close(got, want)
+
+
+def _flash_routes(fn):
+    """fn's flash launches by route."""
+    before = dict(flash_mod.launches_by_route)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {r: c - before[r] for r, c in flash_mod.launches_by_route.items()}
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
+    (1, 64, 4, 4, 16, None, True),       # MHA, D 16
+    (2, 63, 4, 2, 24, None, True),       # D 24, S one short of a tile of 64
+    (1, 130, 8, 2, 80, None, True),      # D 80, S past a 128-row tile
+    (1, 200, 8, 2, 120, 48, True),       # h2o's D 120 with a window
+    (1, 2048, 8, 2, 128, None, True),    # qwen3's D 128, GQA 4:1, S 2,048
+    (1, 1, 4, 1, 128, None, True),       # one step
+    (2, 77, 4, 2, 64, None, False),      # not causal
+    (1, 300, 2, 1, 256, 100, False),     # D 256, a window, not causal
+])
+def test_flash_bf16_takes_the_wgmma_route(cuda, rng, B, S, Hq, Hkv, D, window, causal):
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, D)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    got, routes = _flash_routes(
+        lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+    assert routes == {"wgmma": 1, "cuda_cores": 0} and got.dtype == torch.bfloat16
+    _assert_close(got, ref.attention_ref(q, k, v, causal=causal, window=window))
+
+
+def test_flash_float32_takes_the_cuda_core_route(cuda, rng):
+    q = torch.from_numpy(rng.standard_normal((1, 100, 4, 64)).astype(np.float32)).to(cuda)
+    got, routes = _flash_routes(lambda: ops.flash_attention(q, q[:, :, :2], q[:, :, 2:]))
+    assert routes == {"wgmma": 0, "cuda_cores": 1}
+    _assert_close(got, ref.attention_ref(q, q[:, :, :2], q[:, :, 2:]))
+
+
+@pytest.mark.parametrize("D", [120, 128])
+def test_flash_bf16_takes_views_of_a_fused_projection(cuda, rng, D):
+    """q, k and v as views of one bf16 (B, S, Hq + 2 Hkv, D) projection:
+    strides of (Hq + 2 Hkv) D elements per step, bases D elements apart."""
+    qkv = torch.from_numpy(rng.standard_normal((2, 150, 12, D)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got, routes = _flash_routes(lambda: ops.flash_attention(q, k, v))
+    assert routes == {"wgmma": 1, "cuda_cores": 0}
+    _assert_close(got, ref.attention_ref(q, k, v))
+
+
+def test_flash_bf16_refuses_what_tma_cannot_copy(cuda):
+    """A base or a stride that is no multiple of 16 bytes raises with the
+    reason; nothing is sent to the float32 kernel or to a library."""
+    before = dict(flash_mod.launches_by_route)
+    x = torch.zeros((1, 64, 4, 40), device=cuda, dtype=torch.bfloat16)
+    q = x[..., 1:33]                                   # base 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, q, q)
+    y = torch.zeros((1, 64, 4, 20), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):  # head stride 40 bytes
+        ops.flash_attention(y, y, y)
+    assert flash_mod.launches_by_route == before
 
 
 def test_flash_attention_kernel_takes_strided_inputs(cuda, rng):

@@ -235,11 +235,43 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
         ops.ssd_mix(q, dt, dt, b, b)
 
 
+def test_flash_route_is_chosen_by_dtype_alone():
+    """bf16 takes the wgmma kernel, float32 the CUDA-core kernel, and any
+    other dtype raises; the wgmma route's TMA checks refuse a base or a
+    (b, s, h) stride that is no multiple of 16 bytes, and never look at the
+    stride of a dimension of size 1."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    assert flash_mod.route(torch.bfloat16) == "wgmma"
+    assert flash_mod.route(torch.float32) == "cuda_cores"
+    with pytest.raises(TypeError):
+        flash_mod.route(torch.float16)
+    x = torch.zeros((1, 64, 4, 40), dtype=torch.bfloat16)
+    flash_mod._check_tma("q", x[..., :32])
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod._check_tma("q", x[..., 1:33])
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_mod._check_tma("q", torch.zeros((1, 64, 4, 20), dtype=torch.bfloat16))
+    one = torch.zeros((1, 1, 1, 20), dtype=torch.bfloat16)
+    assert flash_mod._strides(one) == [8, 8, 8]
+    flash_mod._check_tma("q", one)
+
+
+def test_topk_buffers_hold_the_candidates_and_the_outputs():
+    """One scratch of blocks * kb (values, indices) and the (k,) outputs."""
+    cand_v, cand_i, out_v, out_i = ei_score.topk_buffers(1000, 6, torch.device("cpu"))
+    assert cand_v.shape == cand_i.shape == (4 * 6,)
+    assert (cand_v.dtype, cand_i.dtype) == (torch.float32, torch.int32)
+    assert out_v.shape == out_i.shape == (6,)
+    assert (out_v.dtype, out_i.dtype) == (torch.float32, torch.int32)
+    assert ei_score.topk_buffers(3, 8, torch.device("cpu"))[0].shape == (3,)
+
+
 def test_build_is_keyed_on_the_source():
     """Each source builds into its own library under build/repro_torch/,
     named by a hash of source and flags (a second run reuses it)."""
     assert _build.sources() == ["ei_classes", "ei_score", "ei_topk",
-                                "flash_attention", "gp_readout", "ssd"]
+                                "flash_attention", "flash_attention_sm90",
+                                "gp_readout", "ssd"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR
@@ -250,4 +282,4 @@ def test_build_is_keyed_on_the_source():
     # a tolerance may
     for name in _build.sources():
         assert ("-fmad=false" in _build.flags(name)) == (name not in _build.FMA_SOURCES)
-    assert _build.FMA_SOURCES == {"flash_attention", "ssd"}
+    assert _build.FMA_SOURCES == {"flash_attention", "flash_attention_sm90", "ssd"}

@@ -112,6 +112,64 @@ def test_flash_attention_plain_takes_any_length(rng, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
+def _wgmma_route_arithmetic(q, k, v, *, causal=True, window=None, tile=128):
+    """The bf16 flash kernel's arithmetic (``csrc/flash_attention_sm90.cu``)
+    in PyTorch on the CPU: 128-key tiles, scores q . k in float32 (products
+    of bf16 values are exact), the online softmax in float32, P rounded to
+    bf16 before P V, float32 accumulation of O and of the row sum (from the
+    float32 P), output rounded to bf16.  Masked scores -1e30, masked P 0."""
+    B, S, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                                # (B,Hq,S,D)
+    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    scale = 1.0 / float(D) ** 0.5
+    rows = torch.arange(S)[:, None]
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    o = torch.zeros((B, Hq, S, D))
+    for k0 in range(0, S, tile):
+        keys = torch.arange(k0, min(k0 + tile, S))[None, :]
+        live = torch.ones((S, keys.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= keys <= rows
+        if window is not None:
+            live &= keys > rows - window
+        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
+        s = torch.where(live, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.bfloat16().float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (o / torch.clamp_min(l, 1e-30)).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
+    (1, 2048, 4, 1, 128, None, True),     # GQA 4:1, qwen3's head dim, S 2,048
+    (1, 1000, 4, 1, 120, 256, True),      # h2o's head dim, a window, ragged S
+    (2, 300, 8, 2, 128, None, True),      # ragged S
+    (1, 200, 4, 1, 120, 48, True),        # a window narrower than a tile
+    (1, 130, 4, 1, 64, None, False),      # not causal
+])
+def test_bf16_rounding_of_p_fits_the_card_tolerance(rng, B, S, Hq, Hkv, D, window,
+                                                     causal):
+    """Rounding P to bf16 before P V (the wgmma route) keeps the output
+    within the card's bf16 tolerance of the float32 oracles, the port's and
+    the reference's: |got - want| <= 1e-2 |want| + 1e-3 max |want|."""
+    arrays = [rng.standard_normal((B, S, h, D)).astype(np.float32)
+              for h in (Hq, Hkv, Hkv)]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "bfloat16") for a in arrays)
+    got = _wgmma_route_arithmetic(tq, tk, tv, causal=causal, window=window).float()
+    for want in (ops.flash_attention(tq, tk, tv, causal=causal, window=window),
+                 torch.from_numpy(np.array(_f32(jref.attention_ref(
+                     jq, jk, jv, causal=causal, window=window))))):
+        want = want.float()
+        torch.testing.assert_close(got, want, rtol=1e-2,
+                                   atol=1e-3 * float(want.abs().max()))
+
+
 # --- kernel 6: SSD ------------------------------------------------------------
 
 @pytest.mark.parametrize("S,H,P,N,chunk,dtype", [

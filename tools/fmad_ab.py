@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Times the data plane's two kernels built with and without multiply-add
+"""Times the data plane's kernels built with and without multiply-add
 contraction, on one CUDA card.
 
     python3 tools/fmad_ab.py
 
-Builds ``csrc/flash_attention.cu`` and ``csrc/ssd.cu`` twice into
-``build/repro_torch/fmad_ab/``: with ``_build.NVCC_FLAGS`` (nvcc contracts
-a multiply and an add into one FMA where it can) and with ``-fmad=false``
-added (each product and sum rounds on its own, as the EIrate kernels are
-built).  Each build is held against the plain version and timed with CUDA
-events at qwen3-4b's layer shape (B 4, S 2,048, Hq 32, Hkv 8, D 128,
-bf16) and mamba2-1.3b's (B 4, S 2,048, H 64, P 64, N 128, chunk 256, bf16
-x, b, c), the two builds alternating (fma, no_fma, no_fma, fma) over
-``ROUNDS`` rounds.  Prints one JSON line per kernel, then the card's name
-and power limit as ``nvidia-smi`` reports them.
+Builds ``csrc/flash_attention.cu`` (the float32 route),
+``csrc/flash_attention_sm90.cu`` (the bf16 wgmma route) and ``csrc/ssd.cu``
+twice into ``build/repro_torch/fmad_ab/``: with ``_build.NVCC_FLAGS`` (nvcc
+contracts a multiply and an add into one FMA where it can) and with
+``-fmad=false`` added (each product and sum rounds on its own, as the
+EIrate kernels are built).  Each build is held against the plain version
+and timed with CUDA events at qwen3-4b's layer shape (B 4, S 2,048, Hq 32,
+Hkv 8, D 128; float32 for the CUDA-core route, bf16 for the wgmma route)
+and mamba2-1.3b's (B 4, S 2,048, H 64, P 64, N 128, chunk 256, bf16 x, b,
+c), the two builds alternating (fma, no_fma, no_fma, fma) over ``ROUNDS``
+rounds.  Prints one JSON line per kernel, then the card's name and power
+limit as ``nvidia-smi`` reports them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 
 OUT = _build.BUILD_DIR / "fmad_ab"
+SOURCES = ("flash_attention", "flash_attention_sm90", "ssd")
 VARIANTS = {"fma": _build.NVCC_FLAGS, "no_fma": (*_build.NVCC_FLAGS, "-fmad=false")}
 ROUNDS = 3
 
@@ -43,7 +46,7 @@ def build_all() -> dict[tuple[str, str], ctypes.CDLL]:
     """Every (source, variant) library, compiled by one nvcc each, all at once."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("flash_attention", "ssd"):
+    for name in SOURCES:
         for variant, flags in VARIANTS.items():
             out = OUT / f"lib{name}-{variant}.so"
             cmd = [_build._nvcc(), *flags, "-o", str(out),
@@ -62,7 +65,7 @@ def build_all() -> dict[tuple[str, str], ctypes.CDLL]:
 def use(name: str, lib: ctypes.CDLL) -> None:
     """Points the wrapper of ``name`` at ``lib``."""
     _build._LIBS[name] = lib
-    (flash_mod._launcher if name == "flash_attention" else ssd_mod._lib).cache_clear()
+    (flash_mod._launcher if name.startswith("flash") else ssd_mod._lib).cache_clear()
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -86,7 +89,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((4, 2048, h, 128), generator=gen, device=dev)
-               .bfloat16() for h in (32, 8, 8))
+               for h in (32, 8, 8))
+    q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
     x = torch.randn((4, 2048, 64, 64), generator=gen, device=dev).bfloat16()
     dt = torch.rand((4, 2048, 64), generator=gen, device=dev) * 0.099 + 0.001
     la = -dt * (torch.rand((64,), generator=gen, device=dev) * 1.5 + 0.5)
@@ -94,7 +98,9 @@ def main() -> int:
             for _ in range(2))
     cases = {
         "flash_attention": (lambda: flash_mod.flash_attention(q, k, v),
-                            ref.attention_ref(q, k, v).float(), 20),
+                            ref.attention_ref(q, k, v), 10),
+        "flash_attention_sm90": (lambda: flash_mod.flash_attention(q16, k16, v16),
+                                 ref.attention_ref(q16, k16, v16).float(), 50),
         "ssd": (lambda: ssd_mod.ssd_mix(x, dt, la, b, c, chunk=256),
                 ref.ssd_ref(x, dt, la, b, c), 30),
     }
