@@ -10,12 +10,13 @@ Run from the root of a checkout on a machine with one CUDA card and
                  sm_90a into ``build/repro_torch/`` (one nvcc per source, in
                  parallel; a library already built from the same source is
                  reused), and count the HGMMA (wgmma) instructions in the bf16
-                 flash library's SASS (``cuobjdump -sass``): none fails
+                 flash and SSD libraries' SASS (``cuobjdump -sass``): none fails
   kernels        each kernel against its plain PyTorch version on the card,
                  at the paper's size and at service size, with CUDA-event times
-                 and the least time the card could take for the same work; the
-                 top-k kernel also alone (its device time under torch.profiler,
-                 and CUDA events around its C launch only) beside the wrapper
+                 of the wrapper's call, the kernel alone (its device time under
+                 torch.profiler) and the least time the card could take for the
+                 same work; the top-k kernel also with CUDA events around its C
+                 launch only
   episode_fig5   Algorithm 1 (mdmt, M = 4) on the Fig-5 problem, 50 tenants x
                  50 models, on the card and on the CPU: equal trial sequences,
                  and every decision launched the EIrate kernel once
@@ -56,18 +57,21 @@ Run from the root of a checkout on a machine with one CUDA card and
                  h2o-danube-3-4b's sliding window at S 8,192 and an S that no
                  64 divides (bf16 takes the wgmma route, float32 the CUDA-core
                  route; each case names and checks its route); the SSD
-                 kernel at mamba2-1.3b's shape (float32
-                 and bf16 x/b/c), zamba2's and a single chunk; each with its
-                 tolerance, CUDA-event times of kernel, plain version and the
-                 one PyTorch call that computes the same function (flash:
-                 scaled_dot_product_attention; SSD: none), and its bound at
-                 the peak of the inputs' type (bf16 tensor cores or float32
-                 CUDA cores)
+                 kernels at mamba2-1.3b's and zamba2's shapes (float32 x/b/c
+                 take the CUDA-core route, bf16 the tensor-core route) and a
+                 single chunk; the bf16 routes also against their arithmetic
+                 step for step; each with its tolerance, CUDA-event times of
+                 the call, plain version and the one PyTorch call that
+                 computes the same function (flash:
+                 scaled_dot_product_attention; SSD: none), the kernels alone
+                 under torch.profiler, and the bound at the peak of the
+                 inputs' type (bf16 tensor cores or float32 CUDA cores)
   model_forward  qwen3-4b, then mamba2-1.3b, at full width and depth, random
                  weights from a seed, bf16, B 4 x S 2,048: forward_loss and
                  forward_logits_last on the card, one flash launch a layer
-                 (36, every one on the wgmma route) or one SSD launch a layer
-                 (48) per forward and no other kernel; the kernel held against
+                 (36, every one on the wgmma route) or one SSD call a layer
+                 (48, every one on the tensor-core route) per forward and no
+                 other kernel; the kernel held against
                  its plain version on layer
                  0's own inputs; then a CPU twin of the first 2 layers at S 256
                  in float32, last logits equal to the card's
@@ -146,10 +150,11 @@ BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 # |got - want| <= rtol |want| + atol_of_max max|want|.  float32: sums in
 # another order, 2e-4 of each.  bf16: both sides compute in float32 and
 # round the output once (at most one bf16 ulp apart, at most 2^-7 of the
-# value), and the flash kernel's wgmma route also rounds the probabilities
-# to bf16 before P V (about 2^-9 of each term, mostly averaging out over
-# the keys): rtol 1e-2, and 1e-3 of max|want| where the value is near 0.
-# The absolute part scales with max|want|, so no limit nears the values held.
+# value): rtol 1e-2, and 1e-3 of max|want| where the value is near 0.  The
+# bf16 routes enter each float32 factor of a product (flash's P; the SSD
+# scan's W', B' and carried state) as bf16 hi + lo, about 2^-17 a term, so
+# they keep float32 accuracy.  The absolute part scales with max|want|, so
+# no limit nears the values held.
 DATA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
 FLASH_CASES = (                # name, B, S, Hq, Hkv, D, window, dtype
     ("qwen3_4b_bf16", 2, 2048, 32, 8, 128, None, torch.bfloat16),
@@ -163,6 +168,7 @@ SSD_CASES = (                  # name, B, S, H, P, N, chunk, dtype of x, b, c
     ("zamba2_2p7b", 2, 2048, 80, 64, 64, 256, torch.float32),
     ("single_chunk", 2, 256, 64, 64, 128, 256, torch.float32),
     ("mamba2_1p3b_bf16", 2, 2048, 64, 64, 128, 256, torch.bfloat16),
+    ("zamba2_2p7b_bf16", 2, 2048, 80, 64, 64, 256, torch.bfloat16),
 )
 MODEL_ARCHS = ("qwen3-4b", "mamba2-1.3b")
 MODEL_BATCH, MODEL_SEQ = 4, 2048
@@ -206,25 +212,35 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int) -> float:
+def device_ms(fn, kernel, iters: int, parts: dict | None = None) -> float:
     """Mean device milliseconds per launch of the kernel whose name holds
     ``kernel``, under torch.profiler over ``iters`` calls of ``fn`` (after
-    one warm-up call): the kernel alone, without host dispatch."""
+    one warm-up call): the kernel alone, without host dispatch.  With a
+    tuple of names (a route of several kernels), the sum of each one's
+    mean: the device time of one call; ``parts`` then receives each
+    kernel's mean by name."""
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    # the profiler may drop a few of the launches' records: the mean is over
-    # those it kept
-    check(len(rows) == 1 and 0 < rows[0].count <= iters
-          and rows[0].device_time_total > 0.0,
-          f"profiler: {len(rows)} kernels named {kernel!r}, counts "
-          f"{[e.count for e in rows]} for {iters} calls")
-    return rows[0].device_time_total / rows[0].count / 1e3
+    total = 0.0
+    for name in names:
+        rows = [e for e in prof.key_averages() if name in e.key]
+        # the profiler may drop a few of the launches' records: the mean is
+        # over those it kept
+        check(len(rows) == 1 and 0 < rows[0].count <= iters
+              and rows[0].device_time_total > 0.0,
+              f"profiler: {len(rows)} kernels named {name!r}, counts "
+              f"{[e.count for e in rows]} for {iters} calls")
+        mean = rows[0].device_time_total / rows[0].count / 1e3
+        if parts is not None:
+            parts[name] = mean
+        total += mean
+    return total
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -282,11 +298,12 @@ def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
               "eirate tie case: equal inputs must give bit-equal scores")
     iters = 200 if n * N <= 10**6 else 20
     ms = cuda_ms(lambda: ei_score.eirate(*args), iters)
+    kernel_ms = device_ms(lambda: ei_score.eirate(*args), "eirate_kernel", iters)
     plain_ms = cuda_ms(lambda: ref.eirate_ref(*args), max(iters // 10, 3))
     pairs, b_ms, b_by = ei_bound(args)
     return dict(case=name, N=N, n=n, membership=layout, member_pairs=pairs,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def topk_check(name, args, k, ei_score, ref, timed=True):
@@ -407,6 +424,8 @@ def classes_check(name, args, ei_score, ref, timed=True):
     iters = 200 if n * N <= 10**6 else 20
     rec.update(member_pairs=pairs,
                ms=cuda_ms(lambda: ei_score.eirate_classes(*args), iters),
+               kernel_ms=device_ms(lambda: ei_score.eirate_classes(*args),
+                                   "eirate_classes_kernel", iters),
                plain_ms=cuda_ms(lambda: ref.eirate_classes_ref(*args),
                                 max(iters // 10, 3)),
                bound_ms=b_ms, bound_by=b_by)
@@ -440,13 +459,15 @@ def readout_case(k, n, emit_sd, rng, dev, gp_readout, ref):
         check(torch.equal(got[0], mu0), "gp_readout k = 0 must give mu = mu0")
     iters = 200 if k * n <= 10**6 else 20
     ms = cuda_ms(lambda: gp_readout.gp_readout(W, alpha, mu0, kd, emit_sd=emit_sd), iters)
+    kernel_ms = device_ms(lambda: gp_readout.gp_readout(W, alpha, mu0, kd, emit_sd=emit_sd),
+                          "gp_readout_kernel", iters)
     plain_ms = cuda_ms(lambda: ref.gp_readout_ref(W, alpha, mu0, kd, emit_sd=emit_sd),
                        max(iters // 10, 3))
     nbytes = 4 * (k * n + k + 4 * n)
     b_ms, b_by = bound_ms(nbytes, 4 * k * n + 3 * n)
     return dict(case=f"k{k}_n{n}" + ("_sd" if emit_sd else ""), k=k, n=n,
-                emit_sd=emit_sd, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                emit_sd=emit_sd, max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---- episodes -----------------------------------------------------------------
@@ -954,6 +975,10 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
     want = ref.attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
     agreement = held(f"flash_attention {name}", got, want)
+    if route == "wgmma":   # and its arithmetic step for step (P as hi + lo)
+        agreement["route_ref"] = held(f"flash_attention {name} (route arithmetic)",
+                                      got, ref.attention_wgmma_route_ref(
+                                          q, k, v, window=window))
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -975,6 +1000,9 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
                dtype=str(q.dtype).replace("torch.", ""), route=route, **agreement,
                unmasked_pairs=pairs * B * Hq,
                ms=auto_ms(lambda: flash_mod.flash_attention(q, k, v, window=window)),
+               kernel_ms=device_ms(lambda: flash_mod.flash_attention(q, k, v, window=window),
+                                   "flash_sm90_kernel" if route == "wgmma"
+                                   else "flash_kernel", 10),
                plain_ms=auto_ms(lambda: ref.attention_ref(q, k, v, window=window),
                                 max_iters=5),
                library_ms=auto_ms(library), library_max_abs_err=lib_err)
@@ -983,16 +1011,30 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
 
 
 def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
-    """The SSD kernel against ``ref.ssd_ref`` (the per-step recurrence) on
-    the same card inputs, to DATA_TOL (the output is float32); CUDA-event
-    times of both (no single PyTorch call computes the scan).  The bound
+    """The SSD kernels of the inputs' route against ``ref.ssd_ref`` (the
+    per-step recurrence) on the same card inputs, to DATA_TOL (the output
+    is float32), and the tensor-core route against its arithmetic step for
+    step (``ref.ssd_chunked_ref``) too; CUDA-event times of the call and of
+    the plain version (no single PyTorch call computes the scan), and the
+    route's kernels alone (device time under torch.profiler).  The bound
     counts each input read and y written once, and the chunked algorithm's
     flops with C B^T taken once per (batch, chunk), as the heads share it,
     at the peak for x, b and c's type."""
+    route = ssd_mod.route(x.dtype)
+    before = dict(ssd_mod.launches_by_route)
     got = ssd_mod.ssd_mix(x, dt, la, b, c, chunk=chunk)
+    taken = {r: n - before[r] for r, n in ssd_mod.launches_by_route.items()}
+    check(taken == {r: int(r == route) for r in taken},
+          f"ssd {name}: {x.dtype} took the routes {taken}, not {route}")
     want = ref.ssd_ref(x, dt, la, b, c)
     torch.cuda.synchronize()
     agreement = held(f"ssd {name}", got, want)
+    kernels = ssd_mod.TENSOR_CORE_KERNELS if route == "tensor_cores" else ("ssd_kernel",)
+    if route == "tensor_cores":
+        agreement["route_ref"] = held(f"ssd {name} (route arithmetic)", got,
+                                      ref.ssd_chunked_ref(x, dt, la, b, c, chunk=chunk))
+        if ssd_mod.kernels_per_call(x.shape[1], chunk) == 2:
+            kernels = kernels[::2]
     B, S, H, P = x.shape
     N = b.shape[-1]
     Q = min(chunk, S)
@@ -1004,9 +1046,14 @@ def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
         flops += B * H * (pairs * (2 * P + 3) + L * P * (4 * N + 1) + 2 * P * N)
     nbytes = (x.element_size() * (B * S * H * P + 2 * B * S * N)
               + 4 * 2 * B * S * H + 4 * B * S * H * P)
+    by_kernel = {}
     rec = dict(case=name, B=B, S=S, H=H, P=P, N=N, chunk=Q,
-               dtype=str(x.dtype).replace("torch.", ""), **agreement,
+               dtype=str(x.dtype).replace("torch.", ""), route=route,
+               kernels=list(kernels), **agreement,
                ms=auto_ms(lambda: ssd_mod.ssd_mix(x, dt, la, b, c, chunk=chunk)),
+               kernel_ms=device_ms(lambda: ssd_mod.ssd_mix(x, dt, la, b, c, chunk=chunk),
+                                   kernels, 10, by_kernel),
+               kernel_ms_by_kernel=by_kernel,
                plain_ms=auto_ms(lambda: ref.ssd_ref(x, dt, la, b, c), max_iters=3),
                library_ms=None)
     rec.update(bounds(nbytes, flops, x.dtype))
@@ -1083,12 +1130,14 @@ def model_forward_phase(arch, seed, dev, counters):
             ("forward_logits_last", forward_logits_last, {"tokens": tokens})):
         reset(counters)
         flash_mod.reset_launches()
+        ssd_mod.reset_launches()
         t0 = time.perf_counter()
         out = fn(params, batch, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read(counters)
         by_route = dict(flash_mod.launches_by_route)
+        ssd_by_route = dict(ssd_mod.launches_by_route)
         check(launches[kernel] == cfg.num_layers
               and sum(launches.values()) == cfg.num_layers,
               f"model_forward {arch} {fn_name}: launches {launches}, expected "
@@ -1098,10 +1147,16 @@ def model_forward_phase(arch, seed, dev, counters):
                        if kernel == "flash_attention" else {"wgmma": 0, "cuda_cores": 0})
         check(by_route == want_routes, f"model_forward {arch} {fn_name}: flash "
               f"launches by route {by_route}, expected {want_routes}")
+        # and every SSD call the tensor-core route
+        want_ssd = ({"tensor_cores": cfg.num_layers, "cuda_cores": 0}
+                    if kernel == "ssd" else {"tensor_cores": 0, "cuda_cores": 0})
+        check(ssd_by_route == want_ssd, f"model_forward {arch} {fn_name}: SSD "
+              f"calls by route {ssd_by_route}, expected {want_ssd}")
         check(bool(torch.isfinite(out).all()), f"model_forward {arch} {fn_name}: "
               "non-finite output")
         runs[fn_name] = dict(wall_s=wall, tokens_per_s=MODEL_BATCH * MODEL_SEQ / wall,
-                             launches=launches, flash_launches_by_route=by_route)
+                             launches=launches, flash_launches_by_route=by_route,
+                             ssd_calls_by_route=ssd_by_route)
         if fn_name == "forward_loss":
             # the value is the random init's (whose fan-in counts the stacked
             # layer axis, as the reference's does); the CPU twin below holds it
@@ -1162,6 +1217,7 @@ def model_forward_phase(arch, seed, dev, counters):
                launches_per_forward=runs["forward_logits_last"]["launches"][kernel],
                flash_launches_by_route=runs["forward_logits_last"][
                    "flash_launches_by_route"],
+               ssd_calls_by_route=runs["forward_logits_last"]["ssd_calls_by_route"],
                layer0_kernel_case=layer0_case,
                cpu_twin=dict(layers=TWIN_LAYERS, batch=TWIN_BATCH, seq=TWIN_SEQ,
                              dtype="float32", tolerance=TWIN_TOL,
@@ -1315,11 +1371,11 @@ def main() -> int:
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "Used" in ln and "registers" in ln or "spill" in ln]
             for name, log in _build.BUILD_LOG.items()}
-    hgmma = sass_count("flash_attention_sm90", "HGMMA", _build)
-    check(hgmma > 0, "build: the bf16 flash library holds no HGMMA instruction")
+    hgmma = {src: sass_count(src, "HGMMA", _build)
+             for src in ("flash_attention_sm90", "ssd_sm90")}
+    check(all(hgmma.values()), f"build: HGMMA instructions by library {hgmma}")
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              per_source=per_source, ptxas=regs,
-              flash_attention_sm90_hgmma_instructions=hgmma,
+              per_source=per_source, ptxas=regs, hgmma_instructions=hgmma,
               libraries=[str(_build.library_path(s).relative_to(ROOT))
                          for s in _build.sources()]))
 
@@ -1410,9 +1466,13 @@ def main() -> int:
               "recurrence); |got - want| <= rtol |want| + atol, atol a share "
               "of max |want|: float32 output rtol 2e-4 and 2e-4 of max "
               "|want|; bf16 output (both sides round a float32 result once, "
-              "at most one bf16 ulp apart; the flash kernel's wgmma route "
-              "also rounds P to bf16 before P V, about 2^-9 of each term) "
-              "rtol 1e-2 and 1e-3 of max |want|",
+              "at most one bf16 ulp apart) rtol 1e-2 and 1e-3 of max |want|. "
+              "The bf16 routes (flash: wgmma; SSD: tensor_cores) enter each "
+              "float32 factor of a product (flash's P; the SSD scan's W', "
+              "B' and carried state) as bf16 hi + lo, about 2^-17 a term, "
+              "and are held as well to their arithmetic step for step "
+              "(ref.attention_wgmma_route_ref, ref.ssd_chunked_ref) at the "
+              "same tolerance",
               flash_attention=flash_cases, ssd=ssd_cases,
               phase_s=time.perf_counter() - t0))
 
@@ -1448,14 +1508,20 @@ def main() -> int:
                # layer 0 is bf16: the wgmma route (float32 takes flash_attention.cu)
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                                    "src/repro/kernels/flash_attention.py:118"),
-               "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+               # layer 0 is bf16: the tensor-core route (float32 takes ssd.cu)
+               "ssd": ("src/repro_torch/kernels/csrc/ssd_sm90.cu",
                        "src/repro/kernels/ssd.py:92")}
-    # the top-k kernel alone beside its wrapper's call; the flash routes
-    extra = {"eirate_topk": {key: head["eirate_topk"][key]
-                             for key in ("kernel_ms", "c_launch_ms")},
-             "flash_attention": dict(
-                 launches_by_route=forward["qwen3-4b"]["flash_launches_by_route"],
-                 float32_route_source="src/repro_torch/kernels/csrc/flash_attention.cu")}
+    # each kernel alone (device time under torch.profiler) beside its
+    # wrapper's call; the top-k kernel's C launch; the routes
+    extra = {name: dict(kernel_ms=head[name]["kernel_ms"]) for name in head}
+    extra["eirate_topk"]["c_launch_ms"] = head["eirate_topk"]["c_launch_ms"]
+    extra["flash_attention"].update(
+        launches_by_route=forward["qwen3-4b"]["flash_launches_by_route"],
+        float32_route_source="src/repro_torch/kernels/csrc/flash_attention.cu")
+    extra["ssd"].update(
+        calls_by_route=forward["mamba2-1.3b"]["ssd_calls_by_route"],
+        cuda_kernels_per_call=len(head["ssd"]["kernels"]),
+        float32_route_source="src/repro_torch/kernels/csrc/ssd.cu")
     cases = {"eirate": ei_cases, "gp_readout": ro_cases,
              "eirate_topk": topk_cases + rec["main_path_inputs"],
              "eirate_classes": classes_cases + dp["main_path_inputs"],

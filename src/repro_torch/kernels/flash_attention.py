@@ -6,9 +6,11 @@ The route is chosen by the inputs' dtype alone:
 - bfloat16 q, k, v take ``"wgmma"`` (``csrc/flash_attention_sm90.cu``):
   TMA streams 128-row key and value tiles past 128 query rows, both
   products run on the tensor cores (wgmma, float32 accumulators), the
-  online softmax runs on the accumulators in registers, and the
-  probabilities are rounded to bf16 for P V.  TMA needs 16-byte aligned
-  base addresses and strides; other inputs raise.
+  online softmax runs on the accumulators in registers, and the float32
+  probabilities enter P V as bf16 hi + lo (two wgmmas a k16 slice), so P
+  keeps about 16 significant bits.  Its arithmetic step for step is
+  ``ref.attention_wgmma_route_ref``.  TMA needs 16-byte aligned base
+  addresses and strides; other inputs raise.
 - float32 q, k, v take ``"cuda_cores"`` (``csrc/flash_attention.cu``):
   64-row tiles, float32 multiply-adds on the CUDA cores.
 
@@ -27,6 +29,8 @@ import math
 
 import torch
 
+from . import tma
+
 #: kernel launches since the last reset (launches only, never the CPU path)
 launches = 0
 #: the same launches by route: "wgmma" (bf16), "cuda_cores" (float32)
@@ -38,9 +42,6 @@ ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_sm90",
           torch.float32: ("cuda_cores", "flash_attention",
                           "flash_attention_launch")}
 MAX_HEAD_DIM = 256
-#: what the wgmma route's C function returns beyond cudaError_t
-_SM90_ERRORS = {10000: "a base address or stride is not 16-byte aligned (TMA)",
-                10001: "the CUDA runtime found no cuTensorMapEncodeTiled"}
 
 
 def reset_launches() -> None:
@@ -67,24 +68,6 @@ def route(dtype: torch.dtype) -> str:
     if dtype not in ROUTES:
         raise TypeError(f"q, k and v must be float32 or bfloat16, got {dtype}")
     return ROUTES[dtype][0]
-
-
-def _strides(t: torch.Tensor) -> list[int]:
-    """(b, s, h) element strides; a dimension of size 1 is never stepped, so
-    its stride is given as 8 (16 bytes in bf16), which TMA accepts."""
-    return [t.stride(i) if t.shape[i] > 1 else 8 for i in range(3)]
-
-
-def _check_tma(name: str, t: torch.Tensor) -> None:
-    """The wgmma route's TMA copies need a 16-byte aligned base and (b, s, h)
-    strides of a multiple of 16 bytes."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}'s base address is not 16-byte aligned, which "
-                         f"the bf16 (TMA) route needs")
-    bad = [s for s in _strides(t) if (s * t.element_size()) % 16]
-    if bad:
-        raise ValueError(f"{name} has strides {t.stride()}: the bf16 (TMA) route "
-                         f"needs (b, s, h) strides of a multiple of 16 bytes")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
@@ -128,19 +111,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
         raise ValueError(f"B * Hq = {B * Hq} exceeds the kernel's grid (65,535)")
     if name == "wgmma":
         for tn, t in (("q", q), ("k", k), ("v", v)):
-            _check_tma(tn, t)
+            tma.check(tn, t)
     fn = _launcher(q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, Hq, Hkv, D,
-                 *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+                 *tma.strides(q), *tma.strides(k), *tma.strides(v), *tma.strides(out),
                  int(causal), window or 0, 1.0 / math.sqrt(D), stream)
     if err != 0:
-        why = _SM90_ERRORS.get(err) or (
-            f"cuTensorMapEncodeTiled refused a map: CUresult {err - 10002}"
-            if err > 10002 else f"cudaError {err}")
-        raise RuntimeError(f"flash attention kernel ({name}) launch failed: {why}")
+        raise RuntimeError(f"flash attention kernel ({name}) launch failed: "
+                           f"{tma.launch_error(err)}")
     launches += 1
     launches_by_route[name] += 1
     return out

@@ -9,9 +9,12 @@ The sums over tenants and over rows of W run in ascending order, as the
 kernels' loops do.  The data plane's two (:func:`attention_ref`,
 :func:`ssd_ref`) are the definitionally correct formulations -- full-matrix
 attention, the per-step SSD recurrence -- in float32, and the kernels are
-held to them within a stated tolerance.  All run on any device: the CPU
-path of ``ops`` takes them, and ``chip_smoke.py`` holds each kernel against
-them on the card.
+held to them within a stated tolerance.  Beside them, the arithmetic of
+the two bf16 tensor-core routes step for step (:func:`attention_wgmma_route_ref`,
+:func:`ssd_chunked_ref`): the tiles or chunks, where each float32 factor is
+split into bf16 hi + lo, and the float32 sums.  All run on any device: the
+CPU path of ``ops`` takes the oracles, and ``chip_smoke.py`` holds each
+kernel against them on the card.
 """
 
 from __future__ import annotations
@@ -235,3 +238,103 @@ def ssd_ref(x, dt, log_a, b, c):
              + xdt[:, t, :, :, None] * bf[:, t, None, None, :])
         ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], h))
     return torch.stack(ys, 1)
+
+
+def bf16_split(v: torch.Tensor, split: bool = True) -> tuple[torch.Tensor, ...]:
+    """The bf16 operands that stand for a float32 factor on the tensor
+    cores, as float32 tensors: (hi, lo) with hi = bf16(v) and
+    lo = bf16(v - hi), about 16 significant bits together; or (hi,) alone
+    without ``split``, one bf16 rounding (2^-9)."""
+    hi = v.bfloat16().float()
+    return (hi, (v - hi).bfloat16().float()) if split else (hi,)
+
+
+def attention_wgmma_route_ref(q, k, v, *, causal: bool = True,
+                              window: int | None = None, split_p: bool = True):
+    """The bf16 flash route's arithmetic (``csrc/flash_attention_sm90.cu``)
+    step for step: key tiles of 128 (64 at D > 128), scores q . k in
+    float32 (products of bf16 values are exact), the online softmax in
+    float32, P V as P_hi V + P_lo V (:func:`bf16_split`; with ``split_p``
+    False, P rounded once to bf16), float32 accumulation of O and of the
+    row sum (from the float32 P), the output rounded to q's dtype.  Masked
+    scores -1e30, masked P 0, the row sum clamped at 1e-30.
+    q (B, S, Hq, D), k/v (B, S, Hkv, D) -> (B, S, Hq, D)."""
+    B, S, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    tile = 128 if D <= 128 else 64
+    qf = q.float().permute(0, 2, 1, 3)                            # (B, Hq, S, D)
+    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    scale = 1.0 / float(D) ** 0.5
+    rows = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, Hq, S, 1), NEG_LARGE, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    o = torch.zeros((B, Hq, S, D), device=q.device)
+    for k0 in range(0, S, tile):
+        keys = torch.arange(k0, min(k0 + tile, S), device=q.device)[None, :]
+        live = torch.ones((S, keys.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            live &= keys <= rows
+        if window is not None:
+            live &= keys > rows - window
+        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
+        s = torch.where(live, s, NEG_LARGE)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr
+        for part in bf16_split(p, split_p):
+            o = o + part @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (o / torch.clamp_min(l, 1e-30)).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def ssd_chunked_ref(x, dt, log_a, b, c, *, chunk: int = 256, split: bool = True):
+    """The bf16 SSD route's arithmetic (``csrc/ssd_sm90.cu``) step for step:
+    chunks of ``min(chunk, S)`` steps (the last may be short), lcum the
+    inclusive cumsum of log_a within a chunk, l_end its last value, and
+
+      y_t   = exp(lcum_t) (C_t . in_c) + sum_{s <= t} W'[t, s] x_s
+      W'    = (C_t . B_s) exp(lcum_t - lcum_s) dt_s        (masked to s <= t)
+      S_c   = sum_s x_s (x) B'_s,   B'_s = exp(l_end - lcum_s) dt_s B_s
+      in_0  = 0,  in_{c+1} = exp(l_end_c) in_c + S_c
+
+    where each float32 factor of a product (W', B', the carried state in)
+    enters as its bf16 hi + lo (:func:`bf16_split`; one bf16 rounding
+    without ``split``) and x, B and C as they are (bf16 on the route, exact
+    in float32).  Sums in float32; the kernel sums in other orders (the
+    tensor cores, a warp scan for lcum) and takes W''s decay as
+    2^((lcum_t - lcum_s) log2 e) on MUFU.EX2.  x (B, S, H, P), dt/log_a
+    (B, S, H), b/c (B, S, N) -> y (B, S, H, P) float32, without the D * x
+    term."""
+    B, S, H, P = x.shape
+    Q = min(chunk, S)
+    xf, bf, cf = x.float(), b.float(), c.float()
+    dtf, laf = dt.float(), log_a.float()
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    state = None                                         # in_c, (B, H, P, N)
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        xc, bc, cc, dc = (t[:, c0:c0 + L] for t in (xf, bf, cf, dtf))
+        lc = torch.cumsum(laf[:, c0:c0 + L], dim=1)      # (B, L, H)
+        yc = torch.zeros((B, L, H, P), dtype=torch.float32, device=x.device)
+        if state is not None:
+            for part in bf16_split(state, split):
+                yc = yc + torch.einsum("btn,bhpn->bthp", cc, part)
+            yc = yc * torch.exp(lc)[..., None]
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+        causal = causal[None, :, :, None]
+        g = torch.einsum("btn,bsn->bts", cc, bc)         # (B, t, s)
+        decay = torch.exp(torch.where(causal, lc[:, :, None, :] - lc[:, None, :, :], 0.0))
+        w = torch.where(causal, g[..., None] * decay * dc[:, None, :, :], 0.0)
+        for part in bf16_split(w, split):                # (B, t, s, H)
+            yc = yc + torch.einsum("btsh,bshp->bthp", part, xc)
+        y[:, c0:c0 + L] = yc
+        if c0 + L < S:
+            l_end = lc[:, -1]                            # (B, H)
+            bp = (torch.exp(l_end[:, None, :] - lc) * dc)[..., None] * bc[:, :, None, :]
+            s_c = sum(torch.einsum("bshp,bshn->bhpn", xc, part)
+                      for part in bf16_split(bp, split))
+            state = s_c if state is None else torch.exp(l_end)[..., None, None] * state + s_c
+    return y

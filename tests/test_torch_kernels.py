@@ -18,7 +18,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import _build  # noqa: E402
-from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
+from repro_torch.kernels import ei_score, gp_readout, ops, ref, tma  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -246,14 +246,39 @@ def test_flash_route_is_chosen_by_dtype_alone():
     with pytest.raises(TypeError):
         flash_mod.route(torch.float16)
     x = torch.zeros((1, 64, 4, 40), dtype=torch.bfloat16)
-    flash_mod._check_tma("q", x[..., :32])
+    tma.check("q", x[..., :32])
     with pytest.raises(ValueError, match="16-byte"):
-        flash_mod._check_tma("q", x[..., 1:33])
+        tma.check("q", x[..., 1:33])
     with pytest.raises(ValueError, match="16 bytes"):
-        flash_mod._check_tma("q", torch.zeros((1, 64, 4, 20), dtype=torch.bfloat16))
+        tma.check("q", torch.zeros((1, 64, 4, 20), dtype=torch.bfloat16))
     one = torch.zeros((1, 1, 1, 20), dtype=torch.bfloat16)
-    assert flash_mod._strides(one) == [8, 8, 8]
-    flash_mod._check_tma("q", one)
+    assert tma.strides(one) == [8, 8, 8]
+    tma.check("q", one)
+
+
+def test_ssd_route_is_chosen_by_dtype_alone():
+    """bf16 x, b and c take the tensor-core kernels, float32 the CUDA-core
+    kernel, any other dtype raises; the TMA checks pass the views of the
+    model's fused projection and refuse a base that is no multiple of 16
+    bytes; a refused launch names its reason.  One call runs three CUDA
+    kernels, two when the sequence is one chunk."""
+    from repro_torch.kernels import ssd as ssd_mod
+    assert ssd_mod.route(torch.bfloat16) == "tensor_cores"
+    assert ssd_mod.route(torch.float32) == "cuda_cores"
+    with pytest.raises(TypeError):
+        ssd_mod.route(torch.float16)
+    xbc = torch.zeros((2, 64, 4096 + 2 * 128), dtype=torch.bfloat16)  # mamba2-1.3b
+    x = xbc[..., :4096].unflatten(-1, (64, 64))
+    for name, t in (("x", x), ("b", xbc[..., 4096:4224]), ("c", xbc[..., 4224:])):
+        tma.check(name, t)
+    with pytest.raises(ValueError, match="16-byte"):
+        tma.check("b", xbc[..., 4097:4225])
+    assert tma.strides(xbc[..., 4096:4224]) == [64 * 4352, 4352]
+    assert tma.launch_error(10000).startswith("a base address")
+    assert "CUresult 1" in tma.launch_error(10003)
+    assert ssd_mod.kernels_per_call(2048, 256) == 3
+    assert ssd_mod.kernels_per_call(256, 256) == ssd_mod.kernels_per_call(96, 256) == 2
+    assert len(ssd_mod.TENSOR_CORE_KERNELS) == 3
 
 
 def test_topk_buffers_hold_the_candidates_and_the_outputs():
@@ -271,7 +296,7 @@ def test_build_is_keyed_on_the_source():
     named by a hash of source and flags (a second run reuses it)."""
     assert _build.sources() == ["ei_classes", "ei_score", "ei_topk",
                                 "flash_attention", "flash_attention_sm90",
-                                "gp_readout", "ssd"]
+                                "gp_readout", "ssd", "ssd_sm90"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR

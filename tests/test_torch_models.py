@@ -34,7 +34,7 @@ from repro.sharding.rules import ParamSpec as JaxParamSpec  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ModelConfig,
@@ -112,40 +112,6 @@ def test_flash_attention_plain_takes_any_length(rng, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
-def _wgmma_route_arithmetic(q, k, v, *, causal=True, window=None, tile=128):
-    """The bf16 flash kernel's arithmetic (``csrc/flash_attention_sm90.cu``)
-    in PyTorch on the CPU: 128-key tiles, scores q . k in float32 (products
-    of bf16 values are exact), the online softmax in float32, P rounded to
-    bf16 before P V, float32 accumulation of O and of the row sum (from the
-    float32 P), output rounded to bf16.  Masked scores -1e30, masked P 0."""
-    B, S, Hq, D = q.shape
-    G = Hq // k.shape[2]
-    qf = q.float().permute(0, 2, 1, 3)                                # (B,Hq,S,D)
-    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
-    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
-    scale = 1.0 / float(D) ** 0.5
-    rows = torch.arange(S)[:, None]
-    m = torch.full((B, Hq, S, 1), -1e30)
-    l = torch.zeros((B, Hq, S, 1))
-    o = torch.zeros((B, Hq, S, D))
-    for k0 in range(0, S, tile):
-        keys = torch.arange(k0, min(k0 + tile, S))[None, :]
-        live = torch.ones((S, keys.shape[1]), dtype=torch.bool)
-        if causal:
-            live &= keys <= rows
-        if window is not None:
-            live &= keys > rows - window
-        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
-        s = torch.where(live, s, -1e30)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        p = torch.where(live, torch.exp(s - m_new), 0.0)
-        l = l * corr + p.sum(-1, keepdim=True)
-        o = o * corr + p.bfloat16().float() @ vf[:, :, k0:k0 + tile]
-        m = m_new
-    return (o / torch.clamp_min(l, 1e-30)).permute(0, 2, 1, 3).bfloat16()
-
-
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
     (1, 2048, 4, 1, 128, None, True),     # GQA 4:1, qwen3's head dim, S 2,048
     (1, 1000, 4, 1, 120, 256, True),      # h2o's head dim, a window, ragged S
@@ -155,19 +121,51 @@ def _wgmma_route_arithmetic(q, k, v, *, causal=True, window=None, tile=128):
 ])
 def test_bf16_rounding_of_p_fits_the_card_tolerance(rng, B, S, Hq, Hkv, D, window,
                                                      causal):
-    """Rounding P to bf16 before P V (the wgmma route) keeps the output
-    within the card's bf16 tolerance of the float32 oracles, the port's and
-    the reference's: |got - want| <= 1e-2 |want| + 1e-3 max |want|."""
+    """Rounding P once to bf16 before P V (the wgmma route's arithmetic
+    before P was split, ``ref.attention_wgmma_route_ref(split_p=False)``)
+    keeps the output within the card's bf16 tolerance of the float32
+    oracles, the port's and the reference's: |got - want| <= 1e-2 |want| +
+    1e-3 max |want|; so does the route's hi + lo P."""
     arrays = [rng.standard_normal((B, S, h, D)).astype(np.float32)
               for h in (Hq, Hkv, Hkv)]
     (jq, tq), (jk, tk), (jv, tv) = (_both(a, "bfloat16") for a in arrays)
-    got = _wgmma_route_arithmetic(tq, tk, tv, causal=causal, window=window).float()
-    for want in (ops.flash_attention(tq, tk, tv, causal=causal, window=window),
-                 torch.from_numpy(np.array(_f32(jref.attention_ref(
-                     jq, jk, jv, causal=causal, window=window))))):
-        want = want.float()
-        torch.testing.assert_close(got, want, rtol=1e-2,
-                                   atol=1e-3 * float(want.abs().max()))
+    for split_p in (False, True):
+        got = ref.attention_wgmma_route_ref(tq, tk, tv, causal=causal, window=window,
+                                            split_p=split_p).float()
+        for want in (ops.flash_attention(tq, tk, tv, causal=causal, window=window),
+                     torch.from_numpy(np.array(_f32(jref.attention_ref(
+                         jq, jk, jv, causal=causal, window=window))))):
+            want = want.float()
+            torch.testing.assert_close(got, want, rtol=1e-2,
+                                       atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
+    (1, 2048, 4, 1, 128, None, True),     # qwen3's head dim, S 2,048
+    (1, 1000, 4, 1, 120, 256, True),      # h2o's head dim, a window, ragged S
+    (2, 300, 8, 2, 128, None, True),      # ragged S
+    (1, 300, 2, 1, 256, 100, False),      # D 256 (64-key tiles), not causal
+])
+def test_wgmma_route_hi_lo_p_is_one_bf16_ulp_from_the_reference(rng, B, S, Hq, Hkv, D,
+                                                                window, causal):
+    """The bf16 flash route's arithmetic (``ref.attention_wgmma_route_ref``:
+    P as bf16 hi + lo) against the reference's oracle, rounded to bf16 like
+    it: rtol 2^-7 (two bf16 values one ulp apart are at most 2^-7 of the
+    value apart) and an atol of 1e-4 of max |want| for values near 0.  The
+    same arithmetic with P rounded once to bf16 misses that tolerance."""
+    arrays = [rng.standard_normal((B, S, h, D)).astype(np.float32)
+              for h in (Hq, Hkv, Hkv)]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "bfloat16") for a in arrays)
+    want = torch.from_numpy(np.array(_f32(jref.attention_ref(
+        jq, jk, jv, causal=causal, window=window))))
+    tol = dict(rtol=2**-7, atol=1e-4 * float(want.abs().max()))
+    got = ref.attention_wgmma_route_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want, **tol)
+    once = ref.attention_wgmma_route_ref(tq, tk, tv, causal=causal, window=window,
+                                         split_p=False)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(once.float(), want, **tol)
 
 
 # --- kernel 6: SSD ------------------------------------------------------------
@@ -197,6 +195,64 @@ def test_ssd_plain_matches_pallas_and_ref(rng, S, H, P, N, chunk, dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32)
     want = jref.ssd_ref(jx, jnp.asarray(dt), jnp.asarray(la), jb, jc)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+# the SSD output is float32 whatever the route: 2e-4 of each value and 2e-4
+# of max |want| (chip_smoke.py's DATA_TOL for float32): the tensor-core
+# route's products keep about 16 bits a term (bf16 hi + lo), and its sums
+# run in another order than the per-step recurrence's
+def _data_tol_f32(got, want):
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-4 * float(np.abs(want).max()))
+
+
+def _ssd_case(rng, B, S, H, P, N):
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (B, S, H)).astype(np.float32)
+    la = (-dt * rng.uniform(0.5, 2.0, (1, 1, H))).astype(np.float32)
+    b = rng.standard_normal((B, S, N)).astype(np.float32)
+    c = rng.standard_normal((B, S, N)).astype(np.float32)
+    return x, dt, la, b, c
+
+
+@pytest.mark.parametrize("S,H,P,N,chunk", [
+    (128, 2, 32, 16, 32),       # mamba2-1.3b's smoke widths, four chunks
+    (100, 2, 16, 8, 32),        # ragged last chunk (100 = 3 x 32 + 4)
+    (96, 3, 40, 24, 96),        # a single chunk, Q = S = 96, P < 64
+    (512, 2, 64, 128, 256),     # mamba2-1.3b's widths, two chunks
+])
+def test_ssd_chunked_route_matches_pallas_and_ref(rng, S, H, P, N, chunk):
+    """``ref.ssd_chunked_ref`` (the tensor-core route's arithmetic) on bf16
+    x, B and C against the reference's Pallas kernel in interpret mode
+    (where the chunk divides S, as its grid needs) and its per-step oracle,
+    and against the port's oracle ``ref.ssd_ref``."""
+    B = 1
+    x, dt, la, b, c = _ssd_case(rng, B, S, H, P, N)
+    (jx, tx), (jb, tb), (jc, tc) = (_both(a, "bfloat16") for a in (x, b, c))
+    tdt, tla = torch.from_numpy(dt), torch.from_numpy(la)
+    got = ref.ssd_chunked_ref(tx, tdt, tla, tb, tc, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, P)
+    got = got.numpy()
+    if S % min(chunk, S) == 0:
+        _data_tol_f32(got, np.asarray(jops.ssd_mix(jx, jnp.asarray(dt), jnp.asarray(la),
+                                                   jb, jc, chunk=chunk, interpret=True)))
+    _data_tol_f32(got, np.asarray(jref.ssd_ref(jx, jnp.asarray(dt), jnp.asarray(la),
+                                               jb, jc)))
+    _data_tol_f32(got, ref.ssd_ref(tx, tdt, tla, tb, tc).numpy())
+
+
+def test_ssd_single_bf16_rounding_of_the_factors_misses_the_tolerance(rng):
+    """At mamba2-1.3b's widths (Q 256, P 64, N 128; two chunks, two heads)
+    the tensor-core route's arithmetic with each float32 factor (W', B', the
+    carried state) rounded once to bf16 misses the float32 tolerance that
+    the route is held to; with the hi + lo split it meets it."""
+    x, dt, la, b, c = (torch.from_numpy(a) for a in _ssd_case(rng, 1, 512, 2, 64, 128))
+    x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    want = ref.ssd_ref(x, dt, la, b, c).numpy()
+    _data_tol_f32(ref.ssd_chunked_ref(x, dt, la, b, c, chunk=256).numpy(), want)
+    once = ref.ssd_chunked_ref(x, dt, la, b, c, chunk=256, split=False).numpy()
+    with pytest.raises(AssertionError):
+        _data_tol_f32(once, want)
 
 
 # --- the models against the reference -----------------------------------------

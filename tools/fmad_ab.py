@@ -5,15 +5,17 @@ contraction, on one CUDA card.
     python3 tools/fmad_ab.py
 
 Builds ``csrc/flash_attention.cu`` (the float32 route),
-``csrc/flash_attention_sm90.cu`` (the bf16 wgmma route) and ``csrc/ssd.cu``
-twice into ``build/repro_torch/fmad_ab/``: with ``_build.NVCC_FLAGS`` (nvcc
+``csrc/flash_attention_sm90.cu`` (the bf16 wgmma route), ``csrc/ssd.cu``
+(the SSD scan's float32 route) and ``csrc/ssd_sm90.cu`` (its bf16
+tensor-core route) twice into ``build/repro_torch/fmad_ab/``: with ``_build.NVCC_FLAGS`` (nvcc
 contracts a multiply and an add into one FMA where it can) and with
 ``-fmad=false`` added (each product and sum rounds on its own, as the
 EIrate kernels are built).  Each build is held against the plain version
 and timed with CUDA events at qwen3-4b's layer shape (B 4, S 2,048, Hq 32,
 Hkv 8, D 128; float32 for the CUDA-core route, bf16 for the wgmma route)
-and mamba2-1.3b's (B 4, S 2,048, H 64, P 64, N 128, chunk 256, bf16 x, b,
-c), the two builds alternating (fma, no_fma, no_fma, fma) over ``ROUNDS``
+and mamba2-1.3b's (B 4, S 2,048, H 64, P 64, N 128, chunk 256; x, b, c
+float32 for the CUDA-core route, bf16 for the tensor-core route), the two
+builds alternating (fma, no_fma, no_fma, fma) over ``ROUNDS``
 rounds.  Prints one JSON line per kernel, then the card's name and power
 limit as ``nvidia-smi`` reports them.
 """
@@ -37,7 +39,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 
 OUT = _build.BUILD_DIR / "fmad_ab"
-SOURCES = ("flash_attention", "flash_attention_sm90", "ssd")
+SOURCES = ("flash_attention", "flash_attention_sm90", "ssd", "ssd_sm90")
 VARIANTS = {"fma": _build.NVCC_FLAGS, "no_fma": (*_build.NVCC_FLAGS, "-fmad=false")}
 ROUNDS = 3
 
@@ -65,7 +67,10 @@ def build_all() -> dict[tuple[str, str], ctypes.CDLL]:
 def use(name: str, lib: ctypes.CDLL) -> None:
     """Points the wrapper of ``name`` at ``lib``."""
     _build._LIBS[name] = lib
-    (flash_mod._launcher if name.startswith("flash") else ssd_mod._lib).cache_clear()
+    loaders = {"flash_attention": flash_mod._launcher,
+               "flash_attention_sm90": flash_mod._launcher,
+               "ssd": ssd_mod._lib, "ssd_sm90": ssd_mod._sm90}
+    loaders[name].cache_clear()
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -91,18 +96,20 @@ def main() -> int:
     q, k, v = (torch.randn((4, 2048, h, 128), generator=gen, device=dev)
                for h in (32, 8, 8))
     q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
-    x = torch.randn((4, 2048, 64, 64), generator=gen, device=dev).bfloat16()
+    x = torch.randn((4, 2048, 64, 64), generator=gen, device=dev)
     dt = torch.rand((4, 2048, 64), generator=gen, device=dev) * 0.099 + 0.001
     la = -dt * (torch.rand((64,), generator=gen, device=dev) * 1.5 + 0.5)
-    b, c = (torch.randn((4, 2048, 128), generator=gen, device=dev).bfloat16()
-            for _ in range(2))
+    b, c = (torch.randn((4, 2048, 128), generator=gen, device=dev) for _ in range(2))
+    x16, b16, c16 = (t.bfloat16() for t in (x, b, c))
     cases = {
         "flash_attention": (lambda: flash_mod.flash_attention(q, k, v),
                             ref.attention_ref(q, k, v), 10),
         "flash_attention_sm90": (lambda: flash_mod.flash_attention(q16, k16, v16),
                                  ref.attention_ref(q16, k16, v16).float(), 50),
         "ssd": (lambda: ssd_mod.ssd_mix(x, dt, la, b, c, chunk=256),
-                ref.ssd_ref(x, dt, la, b, c), 30),
+                ref.ssd_ref(x, dt, la, b, c), 10),
+        "ssd_sm90": (lambda: ssd_mod.ssd_mix(x16, dt, la, b16, c16, chunk=256),
+                     ref.ssd_ref(x16, dt, la, b16, c16), 50),
     }
     order = ["fma", "no_fma", "no_fma", "fma"]
     for name, (fn, want, iters) in cases.items():
