@@ -212,31 +212,52 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: profiler windows that kept no record of a kernel and were taken again,
+#: each as its kernels and attempt; emitted before the kernels line
+PROFILER_RETRIES: list = []
+PROFILER_ATTEMPTS = 5
+
+
 def device_ms(fn, kernel, iters: int, parts: dict | None = None) -> float:
     """Mean device milliseconds per launch of the kernel whose name holds
     ``kernel``, under torch.profiler over ``iters`` calls of ``fn`` (after
     one warm-up call): the kernel alone, without host dispatch.  With a
     tuple of names (a route of several kernels), the sum of each one's
     mean: the device time of one call; ``parts`` then receives each
-    kernel's mean by name."""
+    kernel's mean by name.
+
+    The profiler drops some of the card's activity records, now and then
+    all of a window's records of one kernel (the launches themselves ran:
+    the wrappers' counts and outputs are checked elsewhere).  A window
+    that kept no record of a kernel is taken again, up to
+    ``PROFILER_ATTEMPTS`` windows in all, each retry noted in
+    ``PROFILER_RETRIES``; the mean is over the records a window kept."""
     from torch.profiler import ProfilerActivity, profile
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(1, PROFILER_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        rows = {name: [e for e in averages if name in e.key] for name in names}
+        missing = {name: [e.count for e in r] for name, r in rows.items()
+                   if not (len(r) == 1 and 0 < r[0].count <= iters
+                           and r[0].device_time_total > 0.0)}
+        if not missing:
+            break
+        PROFILER_RETRIES.append(dict(kernels=sorted(missing), attempt=attempt))
+        print(f"chip_smoke: profiler window {attempt} kept no record of "
+              f"{sorted(missing)}", file=sys.stderr, flush=True)
+        time.sleep(0.2 * attempt)   # the drops come in runs: let one pass
+    check(not missing, f"profiler: no record of the kernels {missing} (name: "
+          f"counts) for {iters} calls in {PROFILER_ATTEMPTS} windows")
     total = 0.0
     for name in names:
-        rows = [e for e in prof.key_averages() if name in e.key]
-        # the profiler may drop a few of the launches' records: the mean is
-        # over those it kept
-        check(len(rows) == 1 and 0 < rows[0].count <= iters
-              and rows[0].device_time_total > 0.0,
-              f"profiler: {len(rows)} kernels named {name!r}, counts "
-              f"{[e.count for e in rows]} for {iters} calls")
-        mean = rows[0].device_time_total / rows[0].count / 1e3
+        row = rows[name][0]
+        mean = row.device_time_total / row.count / 1e3
         if parts is not None:
             parts[name] = mean
         total += mean
@@ -1527,6 +1548,8 @@ def main() -> int:
              "eirate_classes": classes_cases + dp["main_path_inputs"],
              "flash_attention": flash_cases + [head["flash_attention"]],
              "ssd": ssd_cases + [head["ssd"]]}
+    emit(dict(phase="profiler", windows_retried=PROFILER_RETRIES,
+              attempts_allowed=PROFILER_ATTEMPTS))
     emit({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1], launches=main_launches[name],
