@@ -10,13 +10,20 @@ Run from the root of a checkout on a machine with one CUDA card and
                  sm_90a into ``build/repro_torch/`` (one nvcc per source, in
                  parallel; a library already built from the same source is
                  reused), and count the HGMMA (wgmma) instructions in the bf16
-                 flash and SSD libraries' SASS (``cuobjdump -sass``): none fails
+                 flash and SSD libraries' SASS (``cuobjdump -sass``): none
+                 fails; then a probe of the EIrate kernels' term (ndtr's
+                 erf or erfc, and exp, in double), built with their flags:
+                 its DFMA, DADD and DMUL in the SASS must be those of each
+                 EIrate kernel, and a counting build of it gives the FP64
+                 instructions each member pair executes on its own path
   kernels        each kernel against its plain PyTorch version on the card,
                  at the paper's size and at service size, with CUDA-event times
                  of the wrapper's call, the kernel alone (its device time under
                  torch.profiler) and the least time the card could take for the
-                 same work; the top-k kernel also with CUDA events around its C
-                 launch only
+                 same work (the EIrate kernels: bytes, float32 operations or
+                 the FP64 instructions the inputs' terms execute, the
+                 largest); the top-k kernel also with
+                 CUDA events around its C launch only
   episode_fig5   Algorithm 1 (mdmt, M = 4) on the Fig-5 problem, 50 tenants x
                  50 models, on the card and on the CPU: equal trial sequences,
                  and every decision launched the EIrate kernel once
@@ -91,9 +98,12 @@ Then a line listing each kernel, the card's name and power limit as
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import hashlib
 import heapq
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -108,10 +118,36 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
-# arithmetic steps of one member pair's EI (sub, div, scale, abs, erf or
-# erfc, add, halve, square, add, halve, exp, mul, add, mul, accumulate),
-# each erf/erfc/exp counted as one operation: a floor, not a cost model
-EI_OPS = 15
+# H100 SXM, FP64 outside the tensor cores: 34 TFLOP/s, a DFMA two of them,
+# about 132 SMs x 64 FP64 instructions a clock
+FP64_INSTR_PER_S = 1.7e13
+# float32 steps of one member pair's EI besides erf/erfc and exp (sub, div,
+# scale, abs, add, halve, square, add, halve, mul, add, mul, accumulate):
+# a floor, not a cost model
+EI_F32_OPS = 13
+# tau(u) as the EIrate kernels evaluate it (ei_column.cuh): ndtr's erf or
+# erfc, and exp, in double; all the FP64 work of one member pair with
+# sigma > 0.  Built with the kernels' flags twice: as it is, for the static
+# count of its DFMA, DADD and DMUL in the SASS; and with FP64_COUNTED to
+# PTX, where fp64_counted_ptx adds one to %fp64_n after each FP64 fma, add,
+# sub and mul (under the same guard), so each thread stores how many of
+# them it executed on its input (fp64_executed)
+FP64_PROBE = r"""
+#include "ei_column.cuh"
+extern "C" __global__ void probe_tau(const float* u, float* y,
+                                     unsigned* count, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  y[i] = ei::tau(u[i]);
+#ifdef FP64_COUNTED
+  asm volatile("st.u32 [%0], %%fp64_n;" :: "l"(count + i) : "memory");
+#endif
+}
+"""
+FP64_OPCODES = ("DFMA", "DADD", "DMUL")
+FP64_PTX_OP = re.compile(r"^(\s*)(@!?%\w+\s+)?(?:fma|add|sub|mul)\.rn\.f64\s")
+#: the built probe: its CUfunction and what the build phase reports of it
+FP64_PROBE_STATE: dict = {}
 
 FIG5_HORIZON = 600.0           # before the pool runs dry: every decision scores
 DENSE_HORIZON = 50.0           # about 200 decisions at M = 4, unit costs
@@ -264,10 +300,22 @@ def device_ms(fn, kernel, iters: int, parts: dict | None = None) -> float:
     return total
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, fp64: float = 0.0) -> tuple[float, str]:
+    """The least time for ``nbytes`` moved, ``ops`` float32 operations and
+    ``fp64`` FP64 instructions: the largest of the three floors, and
+    "bytes" or "operations" (float32 or FP64) for the one that sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, fp64 / FP64_INSTR_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ei_fp64(mu, sg, best, mem) -> int:
+    """FP64 instructions these inputs' terms execute: tau(u) at u = (mu[x]
+    - best[i]) / sigma[x], as the kernels form it, for every member pair
+    with sigma > 0, each counted on the path it takes (fp64_executed)."""
+    pos = sg > 0
+    u = (mu[None, :] - best[:, None]) / torch.where(pos, sg, 1.0)[None, :]
+    return int(fp64_executed(u[mem.bool() & pos[None, :]]).sum())
 
 
 # ---- kernels ------------------------------------------------------------------
@@ -296,15 +344,18 @@ def ei_inputs(N, n, layout, rng, dev):
 def ei_bound(args, extra_ops=0, out_bytes=None):
     """The least time for an EIrate pass over these inputs: each input read
     once (membership N*n bytes, mu/sigma/cost 12n, selected n, best 4N) and
-    each output written once (default: the (n,) float32 scores); EI_OPS per
-    member pair with sigma > 0, 2 per pair at sigma = 0, 2 per column."""
+    each output written once (default: the (n,) float32 scores); float32:
+    EI_F32_OPS per member pair with sigma > 0, 2 per pair at sigma = 0, 2
+    per column; FP64: ei_fp64(), the instructions the terms execute.
+    Returns (member pairs, FP64 instructions, bound ms, bound_by)."""
     mu, sg, best, mem, _, _ = args
     N, n = mem.shape
     pairs = int(mem.sum())
     pairs_pos = int(mem[:, sg > 0].sum())
     nbytes = N * n + 13 * n + 4 * N + (4 * n if out_bytes is None else out_bytes)
-    ops = pairs_pos * EI_OPS + (pairs - pairs_pos) * 2 + n * 2 + extra_ops
-    return (pairs,) + bound_ms(nbytes, ops)
+    ops = pairs_pos * EI_F32_OPS + (pairs - pairs_pos) * 2 + n * 2 + extra_ops
+    fp64 = ei_fp64(mu, sg, best, mem)
+    return (pairs, fp64) + bound_ms(nbytes, ops, fp64)
 
 
 def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
@@ -321,10 +372,11 @@ def eirate_case(name, N, n, layout, rng, dev, ei_score, ref):
     ms = cuda_ms(lambda: ei_score.eirate(*args), iters)
     kernel_ms = device_ms(lambda: ei_score.eirate(*args), "eirate_kernel", iters)
     plain_ms = cuda_ms(lambda: ref.eirate_ref(*args), max(iters // 10, 3))
-    pairs, b_ms, b_by = ei_bound(args)
+    pairs, fp64, b_ms, b_by = ei_bound(args)
     return dict(case=name, N=N, n=n, membership=layout, member_pairs=pairs,
-                max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                fp64_instructions=fp64, max_abs_err=err, ms=ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def topk_check(name, args, k, ei_score, ref, timed=True):
@@ -350,14 +402,15 @@ def topk_check(name, args, k, ei_score, ref, timed=True):
     bn = min(ref.BLOCK_MODELS, max(n, 1))
     kb = min(k, bn)
     padded = -(-n // bn) * bn
-    pairs, b_ms, b_by = ei_bound(args, extra_ops=kb * padded, out_bytes=8 * k)
+    pairs, fp64, b_ms, b_by = ei_bound(args, extra_ops=kb * padded,
+                                       out_bytes=8 * k)
     iters = 200 if n * N <= 10**6 else 20
     buffers = ei_score.topk_buffers(n, k, args[0].device)
 
     def c_launch():
         ei_score.topk_launch(*args, k, buffers)
 
-    rec.update(member_pairs=pairs,
+    rec.update(member_pairs=pairs, fp64_instructions=fp64,
                ms=cuda_ms(lambda: ei_score.eirate_topk(*args, k=k), iters),
                kernel_ms=device_ms(c_launch, "eirate_topk_kernel", iters),
                c_launch_ms=cuda_ms(c_launch, iters),
@@ -400,16 +453,18 @@ def classes_inputs(N, n, layout, C, rng, dev):
 def classes_bound(args):
     """The least time for a class-axis pass: membership N*n bytes, mu,
     sigma and selected 9n, best 4N, the cost matrix read and the scores
-    written 8Cn; EI_OPS per member pair with sigma > 0, 2 at sigma = 0,
-    a division and a select per (class, column)."""
+    written 8Cn; float32: EI_F32_OPS per member pair with sigma > 0, 2 at
+    sigma = 0, a division and a select per (class, column); FP64: ei_fp64().
+    Returns (member pairs, FP64 instructions, bound ms, bound_by)."""
     mu, sg, best, mem, cm, _ = args
     N, n = mem.shape
     C = cm.shape[0]
     pairs = int(mem.sum())
     pairs_pos = int(mem[:, sg > 0].sum())
     nbytes = N * n + 9 * n + 4 * N + 8 * C * n
-    ops = pairs_pos * EI_OPS + (pairs - pairs_pos) * 2 + 2 * C * n
-    return (pairs,) + bound_ms(nbytes, ops)
+    ops = pairs_pos * EI_F32_OPS + (pairs - pairs_pos) * 2 + 2 * C * n
+    fp64 = ei_fp64(mu, sg, best, mem)
+    return (pairs, fp64) + bound_ms(nbytes, ops, fp64)
 
 
 def classes_check(name, args, ei_score, ref, timed=True):
@@ -441,9 +496,9 @@ def classes_check(name, args, ei_score, ref, timed=True):
                inf_costs=int((~torch.isfinite(cm)).sum()))
     if not timed:
         return rec
-    pairs, b_ms, b_by = classes_bound(args)
+    pairs, fp64, b_ms, b_by = classes_bound(args)
     iters = 200 if n * N <= 10**6 else 20
-    rec.update(member_pairs=pairs,
+    rec.update(member_pairs=pairs, fp64_instructions=fp64,
                ms=cuda_ms(lambda: ei_score.eirate_classes(*args), iters),
                kernel_ms=device_ms(lambda: ei_score.eirate_classes(*args),
                                    "eirate_classes_kernel", iters),
@@ -1353,13 +1408,150 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
                 phase_s=time.perf_counter() - t_phase)
 
 
-def sass_count(source: str, opcode: str, _build) -> int:
-    """Instructions of ``opcode`` in the SASS of ``csrc/<source>.cu``'s
-    library (``cuobjdump -sass`` from the CUDA toolkit)."""
+def sass(library: Path, _build) -> str:
+    """The SASS of a built library (``cuobjdump -sass`` from the CUDA
+    toolkit)."""
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+    return subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def count_by_function(text: str, opcodes=FP64_OPCODES) -> dict[str, int]:
+    """Instructions of ``opcodes`` in each function of a SASS listing (by
+    default DFMA, DADD and DMUL; None: every instruction but NOPs)."""
+    if opcodes is None:
+        pattern = r"/\*[0-9a-f]{4}\*/\s+(?!NOP\b)\S"
+    else:
+        pattern = r"\b(?:" + "|".join(opcodes) + r")\b"
+    return {block.split("\n", 1)[0].strip(): len(re.findall(pattern, block))
+            for block in re.split(r"\n\s*Function : ", text)[1:]}
+
+
+def fp64_counted_ptx(ptx: str) -> tuple[str, int]:
+    """probe_tau's PTX with %fp64_n declared, set to 0 and raised by one
+    after each FP64 fma, add, sub and mul, under that instruction's own
+    guard; and how many such instructions the function holds."""
+    out, counted, state = [], 0, "outside"
+    for line in ptx.splitlines():
+        text = line.strip()
+        if state == "outside" and text.startswith(".visible .entry probe_tau("):
+            state = "head"
+        elif state == "head" and text == "{":
+            out += [line, "\t.reg .b32 \t%fp64_n;"]
+            state = "declarations"
+            continue
+        elif state == "declarations" and text and not text.startswith("."):
+            out.append("\tmov.u32 \t%fp64_n, 0;")
+            state = "body"
+        elif state == "body" and line == "}":
+            state = "after"
+        out.append(line)
+        m = FP64_PTX_OP.match(line) if state == "body" else None
+        if m:
+            out.append(f"{m.group(1)}{m.group(2) or ''}add.u32 \t%fp64_n, %fp64_n, 1;")
+            counted += 1
+    check(state == "after", "build: probe_tau not found in the FP64 probe's PTX")
+    return "\n".join(out) + "\n", counted
+
+
+def fp64_probe(_build) -> dict:
+    """Builds FP64_PROBE with the EIrate kernels' flags, once for a given
+    probe, flags and ei_column.cuh (build/chip_smoke/fp64_probe-<hash>/,
+    reused after): the SASS of probe_tau as it is, and the counting PTX
+    (fp64_counted_ptx) through ptxas.  Checks that the PTX holds as many
+    FP64 fma, add, sub and mul as the SASS holds DFMA, DADD and DMUL, so
+    each counts one SASS instruction, and that every kernel of the three
+    EIrate libraries holds the same FP64 instructions as probe_tau (one
+    inlined term).  Loads the counting probe for fp64_executed and returns
+    what the build phase reports: the static counts, and the executed count
+    at a u on each path of ndtr (erf: |u| < 1; erfc above) and of exp."""
+    flags = [f for f in _build.flags("ei_score")
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    key = hashlib.sha256("\0".join([FP64_PROBE, *flags]).encode())
+    key.update((_build.SRC_DIR / "ei_column.cuh").read_bytes())
+    work = ROOT / "build" / "chip_smoke" / f"fp64_probe-{key.hexdigest()[:16]}"
+    plain, counted = work / "plain.cubin", work / "counted.cubin"
+    built = not counted.exists()
+    if built:
+        work.mkdir(parents=True, exist_ok=True)
+        (work / "probe.cu").write_text(FP64_PROBE)
+        common = [_build._nvcc(), *flags, "-I", str(_build.SRC_DIR)]
+        procs = [subprocess.Popen([*common, *mode, str(work / "probe.cu")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for mode in (["-cubin", "-o", str(plain)],
+                              ["-DFP64_COUNTED", "-ptx", "-o", str(work / "counted.ptx")])]
+        for proc in procs:
+            log, _ = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"build: the FP64 probe failed:\n{log}")
+        ptx, n_ptx = fp64_counted_ptx((work / "counted.ptx").read_text())
+        (work / "counted_rw.ptx").write_text(ptx)
+        (work / "n_ptx").write_text(str(n_ptx))
+        ptxas = Path(_build._nvcc()).with_name("ptxas")
+        proc = subprocess.run([str(ptxas), "-arch=sm_90a", "-O3", "-o",
+                               str(counted.with_suffix(".tmp")), str(work / "counted_rw.ptx")],
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"build: ptxas refused the counting probe:\n{proc.stdout}{proc.stderr}")
+        os.replace(counted.with_suffix(".tmp"), counted)
+    listing = sass(plain, _build)
+    static = count_by_function(listing)["probe_tau"]
+    n_ptx = int((work / "n_ptx").read_text())
+    check(n_ptx == static, f"build: probe_tau holds {n_ptx} FP64 fma/add/sub/mul "
+          f"in PTX but {static} DFMA/DADD/DMUL in SASS")
+    libraries = {src: count_by_function(sass(_build.library_path(src), _build))
+                 for src in ("ei_score", "ei_classes", "ei_topk")}
+    check(all(libraries.values()) and all(
+        c == static for by_kernel in libraries.values() for c in by_kernel.values()),
+        f"build: the EIrate kernels' FP64 instructions {libraries} are not "
+        f"probe_tau's {static}")
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuLaunchKernel.argtypes = [ctypes.c_void_p, *[ctypes.c_uint] * 7,
+                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    torch.zeros(1, device="cuda")          # the primary context, current
+    module, func = ctypes.c_void_p(), ctypes.c_void_p()
+    for name, args in (("cuModuleLoadData", (ctypes.byref(module), counted.read_bytes())),
+                       ("cuModuleGetFunction", (ctypes.byref(func), module, b"probe_tau"))):
+        err = getattr(cuda, name)(*args)
+        check(err == 0, f"build: {name} of the counting probe: CUresult {err}")
+    FP64_PROBE_STATE.update(cuda=cuda, func=func, module=module)
+    # ndtr's erf branch (|u| < 1), its erfc branch on both sides, and exp's
+    # far tail (exp's argument below -708: |u| > 37.6)
+    at = {"erf": 0.5, "erfc": 2.0, "erfc_negative": -2.0, "exp_tail": 40.0}
+    ran = fp64_executed(torch.tensor(list(at.values()), device="cuda")).tolist()
+    return dict(built=built, probe_tau_static=static, ptx_counted=n_ptx,
+                executed_at_u={k: dict(u=u, fp64=c) for (k, u), c in zip(at.items(), ran)},
+                # every instruction of probe_tau but NOPs, its own loads and
+                # stores too, and the UMOVs among them that load the
+                # polynomials' double constants: the SM issues them all
+                probe_instructions=count_by_function(listing, None)["probe_tau"],
+                probe_umov=count_by_function(listing, ("UMOV",))["probe_tau"],
+                libraries=libraries)
+
+
+def fp64_executed(u: torch.Tensor) -> torch.Tensor:
+    """The FP64 instructions (DFMA, DADD, DMUL) the card executes for
+    tau(u) at each element of float32 ``u`` on the card: one launch of the
+    counting probe (fp64_probe), one thread an element."""
+    n = u.numel()
+    u = u.contiguous()
+    y = torch.empty_like(u)
+    count = torch.zeros(n, dtype=torch.int32, device=u.device)
+    if n == 0:
+        return count
+    vals = [ctypes.c_void_p(u.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(count.data_ptr()), ctypes.c_int(n)]
+    params = (ctypes.c_void_p * 4)(*[ctypes.cast(ctypes.pointer(v), ctypes.c_void_p)
+                                     for v in vals])
+    st = FP64_PROBE_STATE
+    err = st["cuda"].cuLaunchKernel(st["func"], (n + 255) // 256, 1, 1, 256, 1, 1, 0,
+                                    torch.cuda.current_stream().cuda_stream,
+                                    params, None)
+    check(err == 0, f"fp64_executed: cuLaunchKernel returned CUresult {err}")
+    torch.cuda.synchronize()
+    check(bool((count > 0).all()), "fp64_executed: a thread counted no FP64 work")
+    return count
 
 
 def main() -> int:
@@ -1392,11 +1584,14 @@ def main() -> int:
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "Used" in ln and "registers" in ln or "spill" in ln]
             for name, log in _build.BUILD_LOG.items()}
-    hgmma = {src: sass_count(src, "HGMMA", _build)
+    hgmma = {src: sum(count_by_function(sass(_build.library_path(src), _build),
+                                        ("HGMMA",)).values())
              for src in ("flash_attention_sm90", "ssd_sm90")}
     check(all(hgmma.values()), f"build: HGMMA instructions by library {hgmma}")
+    fp64 = fp64_probe(_build)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source=per_source, ptxas=regs, hgmma_instructions=hgmma,
+              ei_fp64_instructions=fp64,
               libraries=[str(_build.library_path(s).relative_to(ROOT))
                          for s in _build.sources()]))
 
@@ -1536,6 +1731,10 @@ def main() -> int:
     # wrapper's call; the top-k kernel's C launch; the routes
     extra = {name: dict(kernel_ms=head[name]["kernel_ms"]) for name in head}
     extra["eirate_topk"]["c_launch_ms"] = head["eirate_topk"]["c_launch_ms"]
+    for name in ("eirate", "eirate_topk", "eirate_classes"):
+        # their "operations" floor is FP64: erf or erfc, and exp, in double,
+        # as many as the inputs' terms execute
+        extra[name]["fp64_instructions"] = head[name]["fp64_instructions"]
     extra["flash_attention"].update(
         launches_by_route=forward["qwen3-4b"]["flash_launches_by_route"],
         float32_route_source="src/repro_torch/kernels/csrc/flash_attention.cu")

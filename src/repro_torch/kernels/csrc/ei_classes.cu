@@ -8,27 +8,33 @@
 //   out[c, x] = -1e30                         where selected[x] or cost[c, x]
 //                                             is not finite (memory gate)
 //             = ftz(total(x) / cost[c, x])    otherwise,
-//   total(x)  = sum_i member[i, x] * EI_i(x)  (ei::ei_total_column)
+//   total(x)  = sum_i member[i, x] * EI_i(x)  in ascending tenant order
 //
-// The tenant sum is the one the EIrate and EIrate top-k kernels compute
-// (ei_column.cuh, same flags), so row c is bit-equal to the EIrate kernel
-// run with cost row c wherever that row is finite; with C = 1, rate 1 and
-// overhead 0 the batched decision's head is the sequential decision's pick.
+// The tenant sum is the EIrate kernel's (ei::tile_totals, ei_column.cuh,
+// same flags), so row c is bit-equal to the EIrate kernel run with cost row
+// c wherever that row is finite; with C = 1, rate 1 and overhead 0 the
+// batched decision's head is the sequential decision's pick.
 //
-// Bound on an H100: each input read once and each output written once is
-// N*n bytes of membership, 9n of mu, sigma and selected, 4N of best and 8Cn
-// of cost read and scores written, over 3.35 TB/s.  The erf/exp work grows
-// with the member (tenant, model) pairs: with disjoint membership (the
-// device plane's tenant blocks) the pass is bound by bytes, with dense
-// membership by operations (about 15 per member pair, over 67 TFLOP/s).
+// Bound on an H100, the larger of two floors.  Bytes: N*n of membership,
+// 9n of mu, sigma and selected, 4N of best and 8Cn of cost read and scores
+// written, over 3.35 TB/s.  FP64: erf or erfc, and exp, in double for each
+// member pair with sigma > 0, 56 DFMA, DADD and DMUL on ndtr's erf branch
+// and 77 on its erfc branch (CUDA 12.9; executed counts that chip_smoke.py
+// reads from a counting build of the term), over 1.7e13 FP64 instructions
+// a second.  Disjoint membership (the device plane's tenant blocks) is
+// bound by bytes, dense membership by FP64.
 //
-// Design: one thread per model column, adjacent threads on adjacent
-// columns.  The thread walks the tenants once into a register (the TPU
-// kernel accumulates into row 0 of its output block and fans out in its
-// last tenant step), then loops over the C cost rows: each row is read and
-// written coalesced, so a C-class pass reads membership exactly as often as
-// a one-class pass.  No cross-thread reduction: the sum order is fixed and
-// equal inputs give bit-equal scores.
+// Design: the EIrate kernel's tile body (ei::tile_totals): one block of 256
+// threads per 32 columns, the tenant walk spread over the block (16-byte
+// row loads of 32-tenant chunks, a slab in flight at a time, ballots to
+// member masks, the member terms dealt out over every thread, each
+// column's owner adding its terms in ascending tenant order).  The tile's
+// totals then go to shared memory and the block writes the C x 32 scores,
+// each cost row read and each score row written in runs of 128 bytes, so a
+// C-class pass reads membership exactly as often as a one-class pass.
+// Tiles and grids at the main paths' shapes: device churn run (a) (C 1, N
+// 256, n 4,096) runs 128 blocks, one slab of 8 chunks, 16-byte loads; C 4,
+// N 1,000, n 100,000 runs 3,125 blocks, four slabs.
 
 #include <cuda_runtime.h>
 
@@ -38,23 +44,29 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void eirate_classes_kernel(
+template <int kVec>
+__global__ void __launch_bounds__(ei::kTileThreads)
+eirate_classes_kernel(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ best,
     const unsigned char* __restrict__ membership,
     const float* __restrict__ cost, const unsigned char* __restrict__ selected,
     float* __restrict__ out, int N, int n, int C) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= n) return;
+  constexpr int kCols = ei::kTileCols;
+  __shared__ ei::TileScratch s;
+  __shared__ float totals[kCols];
+  const int t = threadIdx.x, x0 = blockIdx.x * kCols;
   const float total =
-      ei::ei_total_column(mu, sigma, best, membership, N, n, x);
-  const bool sel = selected[x];
-  for (int c = 0; c < C; ++c) {
+      ei::tile_totals<kVec>(mu, sigma, best, membership, N, n, x0, s);
+  if (t < kCols) totals[t] = total;
+  __syncthreads();
+  for (int e = t; e < C * kCols; e += ei::kTileThreads) {
+    const int c = e / kCols, j = e - c * kCols, x = x0 + j;
+    if (x >= n) continue;
     const size_t at = static_cast<size_t>(c) * n + x;
     const float cx = cost[at];
-    out[at] = (sel || !isfinite(cx)) ? ei::kSelected : ei::ftz(total / cx);
+    out[at] = (selected[x] || !isfinite(cx)) ? ei::kSelected
+                                             : ei::ftz(totals[j] / cx);
   }
 }
 
@@ -69,9 +81,12 @@ extern "C" int eirate_classes_launch(const float* mu, const float* sigma,
   if (C < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  eirate_classes_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      mu, sigma, best, membership, cost, selected, out, N, n, C);
+  ei::tile_dispatch(membership, n, [&](auto load) {
+    using T = decltype(load);
+    eirate_classes_kernel<T::kVec>
+        <<<(n + ei::kTileCols - 1) / ei::kTileCols, ei::kTileThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            mu, sigma, best, membership, cost, selected, out, N, n, C);
+  });
   return static_cast<int>(cudaGetLastError());
 }

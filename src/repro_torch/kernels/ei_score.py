@@ -1,16 +1,18 @@
 """Multi-tenant EIrate scoring: the wrappers of the three CUDA kernels.
 
 ``eirate`` is the counterpart of ``repro.kernels.ei_score.eirate_pallas``:
-the kernel (``csrc/ei_score.cu``) runs one thread per model column over
-uint8 membership; its plain version is ``ref.eirate_ref``.  ``eirate_topk``
+the kernel (``csrc/ei_score.cu``) scores a tile of 32 model columns per
+block, the tenant walk spread over the block (``ei_column.cuh``'s
+``tile_totals``); its plain version is ``ref.eirate_ref``.  ``eirate_topk``
 is the counterpart of ``eirate_topk_pallas``: the kernel
 (``csrc/ei_topk.cu``) scores each block of columns with the same per-column
 sum, keeps the block's top-k and merges the blocks' candidates to the
 global top-k in one launch; its plain version is ``ref.eirate_topk_ref``.
 ``eirate_classes`` is the counterpart of
 ``eirate_classes_pallas``: the kernel (``csrc/ei_classes.cu``) sums the
-tenant EI of each column once and divides it by every device class's cost
-row; its plain version is ``ref.eirate_classes_ref``.  ``ops`` sends CPU
+tenant EI of each column once, with the EIrate kernel's tile body, and
+divides it by every device class's cost row; its plain version is
+``ref.eirate_classes_ref``.  ``ops`` sends CPU
 tensors to the plain versions and CUDA tensors here, where they launch a
 kernel or raise.
 """

@@ -55,25 +55,88 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ei_inputs(rng, n, N, device):
+def _ei_inputs(rng, n, N, device, layout="random"):
+    """40% random membership; ``"disjoint"``: one owner a model in ascending
+    blocks (the paper's workloads, both main paths); ``"tie"``: all equal;
+    ``"order"``: 40% membership with sigma small and best_i = -2^e_i, e_i
+    from -20 to 19, so a column's member terms differ in exponent and a
+    sum in another than ascending tenant order gives other floats."""
     mu = rng.standard_normal(n).astype(np.float32)
     sg = np.abs(rng.standard_normal(n)).astype(np.float32)
     sg[: n // 4] = 0.0
     best = rng.standard_normal(N).astype(np.float32)
     mem = rng.random((N, n)) < 0.4
+    if layout == "disjoint":
+        mem = np.zeros((N, n), bool)
+        mem[np.arange(n) * N // n, np.arange(n)] = True
+    if layout == "order":
+        sg = np.full(n, 0.01, np.float32)
+        best = -np.exp2(rng.integers(-20, 20, N)).astype(np.float32)
     cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
     sel = rng.random(n) < 0.25
+    if layout == "tie":
+        mu, sg, best, cost = (np.full_like(a, v) for a, v in
+                              ((mu, 0.0), (sg, 1.0), (best, 0.0), (cost, 1.0)))
+        mem, sel = np.ones_like(mem), np.zeros_like(sel)
     return [torch.from_numpy(a).to(device) for a in (mu, sg, best, mem, cost, sel)]
 
 
-@pytest.mark.parametrize("n,N", [(2500, 50), (513, 100), (17, 3)])
-def test_eirate_kernel_matches_plain(cuda, rng, n, N):
-    args = _ei_inputs(rng, n, N, cuda)
+def _assert_order_shows(args):
+    """The "order" inputs: summing some column's member terms in reverse
+    tenant order gives another float32 than the ascending sum."""
+    mu, sg, best, mem = (a.cpu() for a in args[:4])
+    ei = ref.expected_improvement(mu[None, :], sg[None, :], best[:, None])
+    ei = torch.where(mem, ei, torch.zeros_like(ei))
+    down = torch.zeros_like(mu)
+    for i in reversed(range(ei.shape[0])):
+        down = down + ei[i]
+    assert not torch.equal(down, ref.ei_total_ref(mu, sg, best, mem))
+
+
+@pytest.mark.parametrize("n,N,layout", [
+    pytest.param(2500, 50, "random", id="2500-50"),
+    pytest.param(513, 100, "random", id="513-100"),      # n not a multiple of 16
+    pytest.param(17, 3, "random", id="17-3"),            # n below a tile
+    pytest.param(2500, 50, "disjoint", id="2500-50-disjoint"),   # Fig-5
+    pytest.param(4096, 256, "disjoint", id="4096-256-disjoint"),
+    pytest.param(300, 1, "random", id="300-1"),          # N = 1
+    pytest.param(700, 33, "random", id="700-33"),        # N not a multiple of 32
+    pytest.param(400, 1000, "random", id="400-1000"),    # two slabs, ragged
+    pytest.param(600, 70, "order", id="600-70-order"),
+    pytest.param(600, 3, "tie", id="600-3-tie"),
+    # several tiles a row: 16-, 4- and 1-byte row loads
+    pytest.param(10_000, 40, "random", id="10000-40"),
+    pytest.param(10_004, 40, "random", id="10004-40"),
+    pytest.param(10_001, 300, "disjoint", id="10001-300-disjoint"),
+])
+def test_eirate_kernel_matches_plain(cuda, rng, n, N, layout):
+    args = _ei_inputs(rng, n, N, cuda, layout)
     before = ei_score.launches
     got = ops.eirate(*args)
     torch.cuda.synchronize()
     assert ei_score.launches == before + 1
     torch.testing.assert_close(got, ref.eirate_ref(*args), atol=0, rtol=0)
+    if layout == "order":
+        _assert_order_shows(args)
+    if layout == "tie":
+        assert (got == got[0]).all() and int(torch.argmax(got)) == 0
+
+
+@pytest.mark.parametrize("offset", [1, 4, 16])
+def test_eirate_kernels_take_any_membership_base(cuda, rng, offset):
+    """membership as a contiguous view at a byte offset: the kernels pick
+    their row loads from n and the base (16-, 4- or 1-byte loads)."""
+    n, N = 9_008, 37
+    mu, sg, best, mem, cost, sel = _ei_inputs(rng, n, N + 1, cuda)
+    flat = mem.view(torch.uint8).flatten()
+    view = flat[offset:offset + N * n].view(N, n)
+    args = [mu, sg, best[:N], view, cost, sel]
+    torch.testing.assert_close(ops.eirate(*args), ref.eirate_ref(*args),
+                               atol=0, rtol=0)
+    cm = torch.stack([cost, cost * 2.0])
+    torch.testing.assert_close(
+        ops.eirate_classes(mu, sg, best[:N], view, cm, sel),
+        ref.eirate_classes_ref(mu, sg, best[:N], view, cm, sel), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("n,N,k,layout", [
@@ -120,10 +183,17 @@ def test_eirate_topk_kernel_matches_plain(cuda, rng, n, N, k, layout):
 @pytest.mark.parametrize("n,N,C,layout", [
     (2500, 50, 2, "random"), (513, 100, 4, "random"), (17, 3, 1, "random"),
     (600, 3, 3, "tie"), (300, 8, 3, "gate"),
+    (4096, 256, 1, "disjoint"), (4096, 256, 2, "disjoint"),   # device churn
+    (2500, 50, 1, "disjoint"), (300, 1, 2, "random"), (700, 33, 3, "random"),
+    (400, 1000, 2, "random"), (600, 70, 2, "order"),
+    (10_000, 40, 4, "random"), (10_001, 300, 2, "disjoint"),
 ])
 def test_eirate_classes_kernel_matches_plain_and_eirate_rows(
         cuda, rng, n, N, C, layout):
-    mu, sg, best, mem, cost, sel = _ei_inputs(rng, n, N, cuda)
+    mu, sg, best, mem, cost, sel = _ei_inputs(
+        rng, n, N, cuda, "random" if layout in ("tie", "gate") else layout)
+    if layout == "order":
+        _assert_order_shows([mu, sg, best, mem])
     rates = torch.from_numpy(rng.uniform(0.5, 4.0, C).astype(np.float32)).to(cuda)
     cm = cost[None, :] / rates[:, None] + 0.25
     if layout == "tie":

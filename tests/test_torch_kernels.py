@@ -9,6 +9,8 @@ ndtr, and the two sum in different orders.  The CUDA kernels are held
 against the plain versions on the card in ``test_torch_cuda.py``.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -30,12 +32,19 @@ def cpu_path_never_launches():
             gp_readout.launches) == before
 
 
-def _ei_inputs(rng, n, N):
+def _ei_inputs(rng, n, N, layout="random"):
+    """``"random"``: 40% membership; ``"disjoint"``: one owner a model, the
+    paper's workloads (owners in ascending blocks, as the planes lay out
+    their tenants)."""
     mu = rng.standard_normal(n).astype(np.float32)
     sg = np.abs(rng.standard_normal(n)).astype(np.float32)
     sg[: n // 4] = 0.0                                  # degenerate sigmas
     best = rng.standard_normal(N).astype(np.float32)
-    mem = rng.random((N, n)) < 0.4
+    if layout == "disjoint":
+        mem = np.zeros((N, n), bool)
+        mem[np.arange(n) * N // n, np.arange(n)] = True
+    else:
+        mem = rng.random((N, n)) < 0.4
     cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
     sel = rng.random(n) < 0.25
     return mu, sg, best, mem, cost, sel
@@ -47,11 +56,20 @@ def _t(*arrays):
 
 # --- EIrate -------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,N,bm,bu", [
-    (64, 8, 64, 8), (200, 33, 64, 16), (513, 100, 128, 64), (17, 3, 256, 256),
+@pytest.mark.parametrize("n,N,bm,bu,layout", [
+    pytest.param(64, 8, 64, 8, "random", id="64-8-64-8"),
+    pytest.param(200, 33, 64, 16, "random", id="200-33-64-16"),
+    pytest.param(513, 100, 128, 64, "random", id="513-100-128-64"),
+    pytest.param(17, 3, 256, 256, "random", id="17-3-256-256"),
+    # disjoint membership: the Fig-5 episode's shape, and N not a multiple
+    # of 32 with n not of 16
+    pytest.param(2500, 50, 512, 64, "disjoint", id="2500-50-512-64-disjoint"),
+    pytest.param(513, 33, 128, 64, "disjoint", id="513-33-128-64-disjoint"),
 ])
-def test_eirate_plain_matches_pallas_and_ref(rng, n, N, bm, bu):
-    arrays = _ei_inputs(rng, n, N)
+def test_eirate_plain_matches_pallas_and_ref(rng, n, N, bm, bu, layout):
+    arrays = _ei_inputs(rng, n, N, layout)
+    if layout == "disjoint":
+        assert (arrays[3].sum(0) == 1).all()
     got = ops.eirate(*_t(*arrays)).numpy()
     j = [jnp.asarray(a) for a in arrays]
     pallas = jops.eirate(*j, block_models=bm, block_users=bu, interpret=True)
@@ -308,3 +326,62 @@ def test_build_is_keyed_on_the_source():
     for name in _build.sources():
         assert ("-fmad=false" in _build.flags(name)) == (name not in _build.FMA_SOURCES)
     assert _build.FMA_SOURCES == {"flash_attention", "flash_attention_sm90", "ssd"}
+
+
+PTX_SAMPLE = """
+.visible .entry other(
+)
+{
+	.reg .f64 	%fd<3>;
+	fma.rn.f64 	%fd1, %fd2, %fd2, %fd2;
+	ret;
+}
+.visible .entry probe_tau(
+	.param .u64 probe_tau_param_0
+)
+{
+	.reg .pred 	%p<2>;
+	.reg .f64 	%fd<9>;
+
+	ld.param.u64 	%rd1, [probe_tau_param_0];
+	fma.rn.f64 	%fd1, %fd2, %fd3, %fd4;
+	@%p1 add.rn.f64 	%fd5, %fd1, %fd1;
+	@!%p1 bra 	$L__BB0_2;
+	sub.rn.f64 	%fd6, %fd5, %fd1;
+	mul.rn.f32 	%f1, %f2, %f3;
+	neg.f64 	%fd7, %fd6;
+	setp.ge.f64 	%p1, %fd7, 0d4017AFB48DC96626;
+$L__BB0_2:
+	mul.rn.f64 	%fd8, %fd7, %fd7;
+	ret;
+
+}
+"""
+
+
+def test_fp64_count_follows_each_fp64_op_under_its_guard():
+    """chip_smoke.py's counting probe of the EIrate term: probe_tau's PTX
+    gains %fp64_n, set to 0 before its first instruction and raised by one
+    after each FP64 fma, add, sub and mul under that instruction's guard;
+    no other instruction and no other function is touched."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    out, counted = chip_smoke.fp64_counted_ptx(PTX_SAMPLE)
+    assert counted == 4
+    inc = "add.u32 \t%fp64_n, %fp64_n, 1;"
+    lines = [ln.strip() for ln in out.splitlines()]
+    tau = lines[lines.index(".visible .entry probe_tau("):]
+    assert tau[3:5] == ["{", ".reg .b32 \t%fp64_n;"]
+    first = tau.index("ld.param.u64 \t%rd1, [probe_tau_param_0];")
+    assert tau[first - 1] == "mov.u32 \t%fp64_n, 0;"
+    pairs = [(tau[i - 1], ln) for i, ln in enumerate(tau) if ln.endswith(inc)]
+    assert pairs == [("fma.rn.f64 \t%fd1, %fd2, %fd3, %fd4;", inc),
+                     ("@%p1 add.rn.f64 \t%fd5, %fd1, %fd1;", f"@%p1 {inc}"),
+                     ("sub.rn.f64 \t%fd6, %fd5, %fd1;", inc),
+                     ("mul.rn.f64 \t%fd8, %fd7, %fd7;", inc)]
+    assert sum(ln.endswith(inc) for ln in lines) == 4      # none in `other`
+    with pytest.raises(RuntimeError):
+        chip_smoke.fp64_counted_ptx(PTX_SAMPLE.replace("probe_tau", "probe_x"))
