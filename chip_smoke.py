@@ -10,8 +10,9 @@ Run from the root of a checkout on a machine with one CUDA card and
                  sm_90a into ``build/repro_torch/`` (one nvcc per source, in
                  parallel; a library already built from the same source is
                  reused), and count the HGMMA (wgmma) instructions in the bf16
-                 flash and SSD libraries' SASS (``cuobjdump -sass``): none
-                 fails; then a probe of the EIrate kernels' term (ndtr's
+                 flash and SSD libraries' SASS and in the float32 flash
+                 library's (``cuobjdump -sass``; there every HGMMA must be a
+                 TF32 one): none fails; then a probe of the EIrate kernels' term (ndtr's
                  erf or erfc, and exp, in double), built with their flags:
                  its DFMA, DADD and DMUL in the SASS must be those of each
                  EIrate kernel, and a counting build of it gives the FP64
@@ -23,7 +24,10 @@ Run from the root of a checkout on a machine with one CUDA card and
                  same work (the EIrate kernels: bytes, float32 operations or
                  the FP64 instructions the inputs' terms execute, the
                  largest); the top-k kernel also with
-                 CUDA events around its C launch only
+                 CUDA events around its C launch only; the readout on each of
+                 its three paths (slab, bulk, column: column slices at 1, 2
+                 and 4 columns in, an n no multiple of 4), and the launch
+                 floor, an empty kernel's device time
   episode_fig5   Algorithm 1 (mdmt, M = 4) on the Fig-5 problem, 50 tenants x
                  50 models, on the card and on the CPU: equal trial sequences,
                  and every decision launched the EIrate kernel once
@@ -62,17 +66,21 @@ Run from the root of a checkout on a machine with one CUDA card and
                  the flash attention kernels against their plain version at
                  qwen3-4b's shape (bf16 and float32), olmo-1b's MHA,
                  h2o-danube-3-4b's sliding window at S 8,192 and an S that no
-                 64 divides (bf16 takes the wgmma route, float32 the CUDA-core
-                 route; each case names and checks its route); the SSD
+                 64 divides, in float32 also a ragged S and D 256 with a
+                 window (bf16 takes the wgmma route, float32 the tf32x3 route,
+                 three TF32 products a float32 one; each case names and
+                 checks its route); the SSD
                  kernels at mamba2-1.3b's and zamba2's shapes (float32 x/b/c
                  take the CUDA-core route, bf16 the tensor-core route) and a
-                 single chunk; the bf16 routes also against their arithmetic
-                 step for step; each with its tolerance, CUDA-event times of
+                 single chunk; the tensor-core routes also against their
+                 arithmetic step for step; each with its tolerance, CUDA-event times of
                  the call, plain version and the one PyTorch call that
                  computes the same function (flash:
                  scaled_dot_product_attention; SSD: none), the kernels alone
                  under torch.profiler, and the bound at the peak of the
-                 inputs' type (bf16 tensor cores or float32 CUDA cores)
+                 route's arithmetic (bf16 tensor cores; tf32x3: 3 x flops at
+                 the TF32 rate; float32 CUDA cores) with the CUDA-core bound
+                 beside it
   model_forward  qwen3-4b, then mamba2-1.3b, at full width and depth, random
                  weights from a seed, bf16, B 4 x S 2,048: forward_loss and
                  forward_logits_last on the card, one flash launch a layer
@@ -81,12 +89,14 @@ Run from the root of a checkout on a machine with one CUDA card and
                  other kernel; the kernel held against
                  its plain version on layer
                  0's own inputs; then a CPU twin of the first 2 layers at S 256
-                 in float32, last logits equal to the card's
+                 in float32 (the card's flash launches on the tf32x3 route),
+                 last logits equal to the card's
   serve          StaticBatchEngine on each model (4 requests, prompts of 100 to
                  1,000 tokens, 32 new tokens each, 2 slots): waves, decode
                  steps, slot utilisation, prefill and decode times; then one
                  decode_step after prefill of S - 1 tokens against the kernel
-                 path's forward_logits_last of S tokens, held in float32;
+                 path's forward_logits_last of S tokens, held in float32
+                 (every flash launch on the tf32x3 route, the check timed);
                  in bf16 its drift recorded at 2, 1/4, 1/2 and all of the
                  layers, and the card's bf16 prefill + decode held against
                  the CPU's at 2 layers
@@ -148,6 +158,12 @@ FP64_OPCODES = ("DFMA", "DADD", "DMUL")
 FP64_PTX_OP = re.compile(r"^(\s*)(@!?%\w+\s+)?(?:fma|add|sub|mul)\.rn\.f64\s")
 #: the built probe: its CUfunction and what the build phase reports of it
 FP64_PROBE_STATE: dict = {}
+# the launch floor: an empty kernel, launched as the readout's slab kernel
+# is (one block of 256 threads) through cuLaunchKernel as probe_tau is
+EMPTY_PROBE = r"""
+extern "C" __global__ void __launch_bounds__(256) empty_kernel() {}
+"""
+EMPTY_PROBE_STATE: dict = {}
 
 FIG5_HORIZON = 600.0           # before the pool runs dry: every decision scores
 DENSE_HORIZON = 50.0           # about 200 decisions at M = 4, unit costs
@@ -182,6 +198,12 @@ CLASSES_C = 4                  # device classes of the service-size case
 
 # the data plane
 BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM, dense TF32 on the tensor cores
+# flash's float32 route (tf32x3) against its arithmetic tile for tile
+# (ref.attention_tf32x3_route_ref): both take each product as three TF32
+# products and differ only in the order of sums and in the exp (base 2 on
+# MUFU.EX2): 2e-5 of each value and of max |want|, a tenth of DATA_TOL's
+ROUTE_TOL_F32 = (2e-5, 2e-5)
 # a data-plane kernel against its plain version, by the output's dtype:
 # |got - want| <= rtol |want| + atol_of_max max|want|.  float32: sums in
 # another order, 2e-4 of each.  bf16: both sides compute in float32 and
@@ -195,6 +217,8 @@ DATA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-3)}
 FLASH_CASES = (                # name, B, S, Hq, Hkv, D, window, dtype
     ("qwen3_4b_bf16", 2, 2048, 32, 8, 128, None, torch.bfloat16),
     ("qwen3_4b_f32", 2, 2048, 32, 8, 128, None, torch.float32),
+    ("ragged_s1000_f32", 2, 1000, 32, 8, 128, None, torch.float32),
+    ("d256_window_f32", 1, 2048, 16, 4, 256, 512, torch.float32),
     ("olmo_1b_mha", 2, 2048, 16, 16, 128, None, torch.bfloat16),
     ("h2o_danube_3_4b_window", 1, 8192, 32, 8, 120, 4096, torch.bfloat16),
     ("ragged_s1000", 2, 1000, 32, 8, 128, None, torch.bfloat16),
@@ -249,9 +273,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 #: profiler windows that kept no record of a kernel and were taken again,
-#: each as its kernels and attempt; emitted before the kernels line
+#: each as its kernels, attempt and how many names with device time the
+#: window kept; a kernel that no window recorded is listed with its CUDA-event
+#: time (``timed_by``); emitted before the kernels line
 PROFILER_RETRIES: list = []
 PROFILER_ATTEMPTS = 5
+#: idle seconds at each end of a profiler window: Kineto keeps only device
+#: records that fall inside the window on the host's clock, and the card's
+#: timestamps, mapped to that clock, can lie a few milliseconds off it
+PROFILER_PAD_S = 0.05
 
 
 def device_ms(fn, kernel, iters: int, parts: dict | None = None) -> float:
@@ -264,19 +294,26 @@ def device_ms(fn, kernel, iters: int, parts: dict | None = None) -> float:
 
     The profiler drops some of the card's activity records, now and then
     all of a window's records of one kernel (the launches themselves ran:
-    the wrappers' counts and outputs are checked elsewhere).  A window
-    that kept no record of a kernel is taken again, up to
+    the wrappers' counts and outputs are checked elsewhere).  Each window
+    opens and closes with ``PROFILER_PAD_S`` idle, so that records whose
+    mapped timestamps lie a little off the host's clock stay inside it.  A
+    window that kept no record of a kernel is taken again, up to
     ``PROFILER_ATTEMPTS`` windows in all, each retry noted in
-    ``PROFILER_RETRIES``; the mean is over the records a window kept."""
+    ``PROFILER_RETRIES``; the mean is over the records a window kept.  If
+    no window kept them, the call is timed with CUDA events instead
+    (``cuda_ms``: host dispatch included, parts None), and that is noted
+    there too."""
     from torch.profiler import ProfilerActivity, profile
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILER_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
         averages = prof.key_averages()
         rows = {name: [e for e in averages if name in e.key] for name in names}
         missing = {name: [e.count for e in r] for name, r in rows.items()
@@ -284,12 +321,22 @@ def device_ms(fn, kernel, iters: int, parts: dict | None = None) -> float:
                            and r[0].device_time_total > 0.0)}
         if not missing:
             break
-        PROFILER_RETRIES.append(dict(kernels=sorted(missing), attempt=attempt))
+        PROFILER_RETRIES.append(dict(
+            kernels=sorted(missing), attempt=attempt,
+            device_names=sum(e.device_time_total > 0.0 for e in averages)))
         print(f"chip_smoke: profiler window {attempt} kept no record of "
               f"{sorted(missing)}", file=sys.stderr, flush=True)
         time.sleep(0.2 * attempt)   # the drops come in runs: let one pass
-    check(not missing, f"profiler: no record of the kernels {missing} (name: "
-          f"counts) for {iters} calls in {PROFILER_ATTEMPTS} windows")
+    if missing:
+        ms = cuda_ms(fn, iters)
+        PROFILER_RETRIES.append(dict(kernels=sorted(missing), timed_by="cuda_events",
+                                     ms=ms))
+        print(f"chip_smoke: no profiler window kept a record of {sorted(missing)} "
+              f"in {PROFILER_ATTEMPTS}; timed with CUDA events: {ms} ms",
+              file=sys.stderr, flush=True)
+        if parts is not None:
+            parts.update({name: None for name in names})
+        return ms
     total = 0.0
     for name in names:
         row = rows[name][0]
@@ -520,12 +567,28 @@ def classes_case(name, C, N, n, layout, rng, dev, ei_score, ref):
     return rec
 
 
-def readout_case(k, n, emit_sd, rng, dev, gp_readout, ref):
-    W = torch.from_numpy((rng.standard_normal((k, n)) * 0.3).astype(np.float32)).to(dev)
+def readout_case(k, n, emit_sd, rng, dev, gp_readout, ref, offset=None, width=None):
+    """The readout kernel against its plain version, bit for bit, with its
+    times; ``offset``: W is columns [offset, offset + n) of a (k, width)
+    buffer (default n + 8; a shard's column slice), which takes 16-byte
+    copies only where its rows start 16-byte aligned.  The path is the one
+    the wrapper counted a launch on."""
+    if offset is None:
+        width = n
+    elif width is None:
+        width = n + 8
+    W = torch.from_numpy((rng.standard_normal((k, width)) * 0.3).astype(np.float32)).to(dev)
+    if offset is not None:
+        W = W[:, offset:offset + n]
     alpha = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(dev)
     mu0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
     kd = (W * W).sum(0) + torch.rand(n, device=dev)
+    gp_readout.reset_launches()
     got = gp_readout.gp_readout(W, alpha, mu0, kd, emit_sd=emit_sd)
+    taken = [p for p, c in gp_readout.launches_by_path.items() if c]
+    check(gp_readout.launches == 1 and len(taken) == 1,
+          f"gp_readout ({k}, {n}): one call counted {gp_readout.launches} "
+          f"launches, by path {gp_readout.launches_by_path}")
     want = ref.gp_readout_ref(W, alpha, mu0, kd, emit_sd=emit_sd)
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -541,9 +604,19 @@ def readout_case(k, n, emit_sd, rng, dev, gp_readout, ref):
                        max(iters // 10, 3))
     nbytes = 4 * (k * n + k + 4 * n)
     b_ms, b_by = bound_ms(nbytes, 4 * k * n + 3 * n)
-    return dict(case=f"k{k}_n{n}" + ("_sd" if emit_sd else ""), k=k, n=n,
-                emit_sd=emit_sd, max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(case=f"k{k}_n{n}" + ("_sd" if emit_sd else "")
+                + ("" if offset is None else f"_slice{offset}_of{width}"), k=k, n=n,
+                emit_sd=emit_sd, offset=offset, width=width, path=taken[0],
+                max_abs_err=err, ms=ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def launch_floor_ms() -> float:
+    """The device time of an empty kernel launched as the readout's slab
+    kernel is (one block of 256 threads; empty_probe), under the same
+    profiler window as the kernels alone: the least any launch takes,
+    beside which a readout of a few KB is read."""
+    return device_ms(empty_launch, "empty_kernel", 200)
 
 
 # ---- episodes -----------------------------------------------------------------
@@ -619,6 +692,7 @@ def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
     scores = unsharded()
     want = int(torch.argmax(scores))
     want_v, want_i = ref.topk_first(scores, TOPK)
+    readout = counters["gp_readout"][0]
     runs = []
     for S in (1, 4):
         for kernel in ("eirate_topk", "eirate"):
@@ -626,10 +700,12 @@ def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
             sc.refresh(member, cost)
             for mod, attr in counters.values():
                 setattr(mod, attr, 0)
+            readout.reset_launches()
             v, g = sc.readout_decide_topk(W, alpha, mu0, kd, best, sel)
             torch.cuda.synchronize()
             launches = {name: getattr(mod, attr)
                         for name, (mod, attr) in counters.items()}
+            by_path = {p: c for p, c in readout.launches_by_path.items() if c}
             check(int(g[0]) == want and float(v[0]) == float(scores[want]),
                   f"readout_decide S={S} {kernel}: pick ({int(g[0])}, "
                   f"{float(v[0])}) vs unsharded ({want}, {float(scores[want])})")
@@ -639,9 +715,12 @@ def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
                   and launches[kernel] == S
                   and sum(launches.values()) == 2 * S,
                   f"readout_decide S={S} {kernel}: launches {launches}")
+            # the whole W's blocks cover the SMs; a shard's slice's do not
+            check(by_path == {"bulk" if S == 1 else "bulk_deep": S},
+                  f"readout_decide S={S} {kernel}: readout paths {by_path}")
             runs.append(dict(num_shards=S, route=kernel, pick=int(g[0]),
                              value=float(v[0]), ids=g.tolist(),
-                             launches=launches,
+                             launches=launches, readout_paths=by_path,
                              ms=host_ms(lambda: sc.readout_decide_topk(
                                  W, alpha, mu0, kd, best, sel), 10)))
     return dict(phase="readout_decide", k_obs=k_obs, n=n, N=N, k=TOPK,
@@ -1001,27 +1080,36 @@ def auto_ms(fn, budget_ms: float = 150.0, max_iters: int = 50) -> float:
     return cuda_ms(fn, int(min(max(budget_ms / max(first, 1e-3), 3), max_iters)))
 
 
-def bounds(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
-    """The bound at the card's peak for the inputs' type (bf16: the tensor
-    cores' 989 TFLOP/s; float32: the CUDA cores' 67 TFLOP/s) and, beside
-    it, the bound at the float32 CUDA-core rate the kernels compute at."""
+def bounds(nbytes: float, flops: float, route: str) -> dict:
+    """The bound at the card's peak for the route's arithmetic and, beside
+    it, the bound at the float32 CUDA-core rate: bf16 routes ("wgmma",
+    "tensor_cores") at the tensor cores' 989 TFLOP/s; flash's float32 route
+    ("tf32x3") at three TF32 products for each float32 product, 3 x flops
+    over 495 TFLOP/s; the SSD scan's float32 route ("cuda_cores") at the
+    CUDA cores' 67 TFLOP/s.  Each the larger of that and bytes over 3.35
+    TB/s."""
     f32_ms = bound_ms(nbytes, flops)[0]
-    if dtype != torch.bfloat16:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if route == "cuda_cores":
         b_ms, b_by = bound_ms(nbytes, flops)
         peak = "float32 CUDA cores, 67 TFLOP/s; 3.35 TB/s"
     else:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_OPS_PER_S * 1e3
+        if route == "tf32x3":
+            t_ops = 3 * flops / TF32_OPS_PER_S * 1e3
+            peak = "3 x flops on the TF32 tensor cores, 495 TFLOP/s; 3.35 TB/s"
+        else:
+            t_ops = flops / BF16_OPS_PER_S * 1e3
+            peak = "bf16 tensor cores, 989 TFLOP/s; 3.35 TB/s"
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        peak = "bf16 tensor cores, 989 TFLOP/s; 3.35 TB/s"
     return dict(bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
                 bound_peak=peak, bound_ms_f32_cuda_cores=f32_ms)
 
 
-def held(name, got, want) -> dict:
-    """Holds a kernel's output to its plain version's at DATA_TOL of the
-    output's dtype; what the case prints of it."""
-    rtol, atol_of_max = DATA_TOL[want.dtype]
+def held(name, got, want, tol=None) -> dict:
+    """Holds a kernel's output to its plain version's at ``tol`` (rtol,
+    atol as a share of max |want|), by default DATA_TOL of the output's
+    dtype; what the case prints of it."""
+    rtol, atol_of_max = tol or DATA_TOL[want.dtype]
     g, w = got.float(), want.float()
     scale = float(w.abs().max())
     diff = (g - w).abs()
@@ -1055,6 +1143,10 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
         agreement["route_ref"] = held(f"flash_attention {name} (route arithmetic)",
                                       got, ref.attention_wgmma_route_ref(
                                           q, k, v, window=window))
+    else:                  # tf32x3: its arithmetic tile for tile, tighter
+        agreement["route_ref"] = held(f"flash_attention {name} (route arithmetic)",
+                                      got, ref.attention_tf32x3_route_ref(
+                                          q, k, v, window=window), ROUTE_TOL_F32)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1078,11 +1170,11 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
                ms=auto_ms(lambda: flash_mod.flash_attention(q, k, v, window=window)),
                kernel_ms=device_ms(lambda: flash_mod.flash_attention(q, k, v, window=window),
                                    "flash_sm90_kernel" if route == "wgmma"
-                                   else "flash_kernel", 10),
+                                   else "flash_tf32x3_kernel", 10),
                plain_ms=auto_ms(lambda: ref.attention_ref(q, k, v, window=window),
                                 max_iters=5),
                library_ms=auto_ms(library), library_max_abs_err=lib_err)
-    rec.update(bounds(nbytes, 4 * D * pairs * B * Hq, q.dtype))
+    rec.update(bounds(nbytes, 4 * D * pairs * B * Hq, route))
     return rec
 
 
@@ -1132,7 +1224,7 @@ def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
                kernel_ms_by_kernel=by_kernel,
                plain_ms=auto_ms(lambda: ref.ssd_ref(x, dt, la, b, c), max_iters=3),
                library_ms=None)
-    rec.update(bounds(nbytes, flops, x.dtype))
+    rec.update(bounds(nbytes, flops, route))
     return rec
 
 
@@ -1219,8 +1311,8 @@ def model_forward_phase(arch, seed, dev, counters):
               f"model_forward {arch} {fn_name}: launches {launches}, expected "
               f"{cfg.num_layers} of {kernel} and no other kernel")
         # bf16 compute: every flash launch takes the wgmma route
-        want_routes = ({"wgmma": cfg.num_layers, "cuda_cores": 0}
-                       if kernel == "flash_attention" else {"wgmma": 0, "cuda_cores": 0})
+        want_routes = ({"wgmma": cfg.num_layers, "tf32x3": 0}
+                       if kernel == "flash_attention" else {"wgmma": 0, "tf32x3": 0})
         check(by_route == want_routes, f"model_forward {arch} {fn_name}: flash "
               f"launches by route {by_route}, expected {want_routes}")
         # and every SSD call the tensor-core route
@@ -1266,10 +1358,16 @@ def model_forward_phase(arch, seed, dev, counters):
     twin_batch = {"tokens": tokens[:TWIN_BATCH, :TWIN_SEQ],
                   "labels": labels[:TWIN_BATCH, :TWIN_SEQ]}
     reset(counters)
+    flash_mod.reset_launches()
     card = forward_logits_last(twin, twin_batch, twin_cfg)
     card_loss = forward_loss(twin, twin_batch, twin_cfg)
     torch.cuda.synchronize()
     twin_launches = read(counters)
+    # float32 compute: every flash launch takes the tf32x3 route
+    twin_routes = dict(flash_mod.launches_by_route)
+    want_twin = {"wgmma": 0, "tf32x3": 2 * TWIN_LAYERS if kernel == "flash_attention" else 0}
+    check(twin_routes == want_twin, f"model_forward {arch}: the float32 twin's flash "
+          f"launches by route {twin_routes}, expected {want_twin}")
     t0 = time.perf_counter()
     twin_cpu = tensors_to(twin, "cpu")
     batch_cpu = {k: v.cpu() for k, v in twin_batch.items()}
@@ -1297,6 +1395,7 @@ def model_forward_phase(arch, seed, dev, counters):
                layer0_kernel_case=layer0_case,
                cpu_twin=dict(layers=TWIN_LAYERS, batch=TWIN_BATCH, seq=TWIN_SEQ,
                              dtype="float32", tolerance=TWIN_TOL,
+                             flash_launches_by_route=twin_routes,
                              max_abs_err=twin_err, loss_card=float(card_loss),
                              loss_cpu=float(cpu_loss), card_launches=twin_launches,
                              cpu_s=cpu_s),
@@ -1320,6 +1419,7 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
     """StaticBatchEngine on the card, then decode after prefill against the
     kernel path's forward: held in float32 at full depth; in bf16 held card
     against CPU at TWIN_LAYERS and its drift recorded by depth."""
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.serve import Request, ServeConfig, StaticBatchEngine
 
     t_phase = time.perf_counter()
@@ -1345,17 +1445,28 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
     kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ))
                             .astype(np.int32)).to(dev)
-    drift = {}
+    drift, check_s, routes = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         reset(counters)
+        flash_mod.reset_launches()
+        t0 = time.perf_counter()
         got, want = decode_after_prefill(params, toks, c)
         torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        check_s[name] = time.perf_counter() - t0
         # the forward launches the kernel once a layer; prefill and decode none
         got_launches = read(counters)
         check(got_launches[kernel] == cfg.num_layers
               and sum(got_launches.values()) == cfg.num_layers,
               f"serve {arch}: the check launched {got_launches}")
+        # flash by dtype: float32 on the tf32x3 route, bf16 on wgmma
+        routes[name] = dict(flash_mod.launches_by_route)
+        n_flash = cfg.num_layers if kernel == "flash_attention" else 0
+        want_routes = ({"wgmma": 0, "tf32x3": n_flash} if dtype == torch.float32
+                       else {"wgmma": n_flash, "tf32x3": 0})
+        check(routes[name] == want_routes, f"serve {arch}: the {name} check's flash "
+              f"launches by route {routes[name]}, expected {want_routes}")
         drift[str(dtype).replace("torch.", "")] = float(
             (got.float() - want.float()).abs().max())
     # float32: the two paths differ only in the order of sums
@@ -1399,7 +1510,8 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
                 launches=launches,
                 decode_after_prefill=dict(
                     seq=CHECK_SEQ, tolerance=DECODE_TOL, held="float32",
-                    max_abs_err=drift, bf16_max_abs_err_by_layers=by_depth,
+                    max_abs_err=drift, seconds=check_s, flash_launches_by_route=routes,
+                    bf16_max_abs_err_by_layers=by_depth,
                     bf16_cpu_twin=dict(layers=TWIN_LAYERS, seq=TWIN_SEQ,
                                        tolerance=TWIN_TOL_BF16,
                                        decode_max_abs_err=twin_errs[0],
@@ -1506,16 +1618,7 @@ def fp64_probe(_build) -> dict:
         f"build: the EIrate kernels' FP64 instructions {libraries} are not "
         f"probe_tau's {static}")
 
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuLaunchKernel.argtypes = [ctypes.c_void_p, *[ctypes.c_uint] * 7,
-                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    torch.zeros(1, device="cuda")          # the primary context, current
-    module, func = ctypes.c_void_p(), ctypes.c_void_p()
-    for name, args in (("cuModuleLoadData", (ctypes.byref(module), counted.read_bytes())),
-                       ("cuModuleGetFunction", (ctypes.byref(func), module, b"probe_tau"))):
-        err = getattr(cuda, name)(*args)
-        check(err == 0, f"build: {name} of the counting probe: CUresult {err}")
-    FP64_PROBE_STATE.update(cuda=cuda, func=func, module=module)
+    FP64_PROBE_STATE.update(load_function(counted, "probe_tau", "the counting probe"))
     # ndtr's erf branch (|u| < 1), its erfc branch on both sides, and exp's
     # far tail (exp's argument below -708: |u| > 37.6)
     at = {"erf": 0.5, "erfc": 2.0, "erfc_negative": -2.0, "exp_tail": 40.0}
@@ -1528,6 +1631,54 @@ def fp64_probe(_build) -> dict:
                 probe_instructions=count_by_function(listing, None)["probe_tau"],
                 probe_umov=count_by_function(listing, ("UMOV",))["probe_tau"],
                 libraries=libraries)
+
+
+def load_function(cubin: Path, name: str, what: str) -> dict:
+    """The kernel ``name`` of ``cubin``, loaded into the primary context
+    through the driver API: libcuda, the CUfunction and its module."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuLaunchKernel.argtypes = [ctypes.c_void_p, *[ctypes.c_uint] * 7,
+                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    torch.zeros(1, device="cuda")          # the primary context, current
+    module, func = ctypes.c_void_p(), ctypes.c_void_p()
+    for call, args in (("cuModuleLoadData", (ctypes.byref(module), cubin.read_bytes())),
+                       ("cuModuleGetFunction", (ctypes.byref(func), module,
+                                                name.encode()))):
+        err = getattr(cuda, call)(*args)
+        check(err == 0, f"build: {call} of {what}: CUresult {err}")
+    return dict(cuda=cuda, func=func, module=module)
+
+
+def empty_probe(_build) -> dict:
+    """Builds EMPTY_PROBE with the readout's flags, once for a given probe
+    and flags (build/chip_smoke/empty_probe-<hash>/, reused after), and
+    loads it for empty_launch.  Returns whether it was built."""
+    flags = [f for f in _build.flags("gp_readout")
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    key = hashlib.sha256("\0".join([EMPTY_PROBE, *flags]).encode())
+    work = ROOT / "build" / "chip_smoke" / f"empty_probe-{key.hexdigest()[:16]}"
+    cubin = work / "empty.cubin"
+    built = not cubin.exists()
+    if built:
+        work.mkdir(parents=True, exist_ok=True)
+        (work / "empty.cu").write_text(EMPTY_PROBE)
+        proc = subprocess.run([_build._nvcc(), *flags, "-cubin", "-o",
+                               str(cubin.with_suffix(".tmp")), str(work / "empty.cu")],
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"build: the empty probe failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(cubin.with_suffix(".tmp"), cubin)
+    EMPTY_PROBE_STATE.update(load_function(cubin, "empty_kernel", "the empty probe"))
+    return dict(built=built)
+
+
+def empty_launch() -> None:
+    """One launch of the empty probe on the current stream: one block of
+    256 threads, no parameters."""
+    st = EMPTY_PROBE_STATE
+    err = st["cuda"].cuLaunchKernel(st["func"], 1, 1, 1, 256, 1, 1, 0,
+                                    torch.cuda.current_stream().cuda_stream, None, None)
+    check(err == 0, f"empty_launch: cuLaunchKernel returned CUresult {err}")
 
 
 def fp64_executed(u: torch.Tensor) -> torch.Tensor:
@@ -1584,14 +1735,27 @@ def main() -> int:
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if "Used" in ln and "registers" in ln or "spill" in ln]
             for name, log in _build.BUILD_LOG.items()}
-    hgmma = {src: sum(count_by_function(sass(_build.library_path(src), _build),
-                                        ("HGMMA",)).values())
-             for src in ("flash_attention_sm90", "ssd_sm90")}
-    check(all(hgmma.values()), f"build: HGMMA instructions by library {hgmma}")
+    listings = {src: sass(_build.library_path(src), _build)
+                for src in ("flash_attention_sm90", "ssd_sm90", "flash_attention")}
+    hgmma = {src: sum(count_by_function(text, ("HGMMA",)).values())
+             for src, text in listings.items()}
+    # the float32 flash route's products are tf32 HGMMAs: every HGMMA that
+    # writes registers (ptxas adds one 64x8x16.F16 into RZ a kernel, which
+    # computes nothing)
+    forms = {src: sorted(set(re.findall(r"\bHGMMA\.(\S+) R\d", text)))
+             for src, text in listings.items()}
+    hgmma_tf32 = len(re.findall(r"\bHGMMA\.\S*TF32 R\d", listings["flash_attention"]))
+    check(all(hgmma.values()) and hgmma_tf32 > 0
+          and all(f.endswith(".TF32") for f in forms["flash_attention"]),
+          f"build: HGMMA instructions by library {hgmma}, {hgmma_tf32} TF32 "
+          f"in flash_attention, forms {forms}")
     fp64 = fp64_probe(_build)
+    empty = empty_probe(_build)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source=per_source, ptxas=regs, hgmma_instructions=hgmma,
-              ei_fp64_instructions=fp64,
+              hgmma_tf32_instructions={"flash_attention": hgmma_tf32},
+              hgmma_forms=forms,
+              ei_fp64_instructions=fp64, empty_probe=empty,
               libraries=[str(_build.library_path(s).relative_to(ROOT))
                          for s in _build.sources()]))
 
@@ -1605,6 +1769,18 @@ def main() -> int:
     ro_cases = [readout_case(k, n, sd, rng, dev, gp_readout, ref)
                 for k, n in ((0, 50), (50, 50), (512, 2500), (1024, 100_000))
                 for sd in (False, True)]
+    # n no multiple of 4; column slices of a wider W 1, 2 and 4 columns in
+    # (4-byte loads, then 16-byte bulk copies); a shard's slice of
+    # readout_decide's W over 4 shards (its blocks fewer than the SMs)
+    ro_cases += [readout_case(k, n, False, rng, dev, gp_readout, ref, offset, width)
+                 for k, n, offset, width in (
+                     (300, 40_001, None, None), (256, 40_000, 1, None),
+                     (256, 40_000, 2, None), (256, 40_000, 4, None),
+                     (READOUT_SHAPE[0], READOUT_SHAPE[1] // 4, READOUT_SHAPE[1] // 4,
+                      READOUT_SHAPE[1]))]
+    floor_ms = launch_floor_ms()
+    check({c["path"] for c in ro_cases} == set(gp_readout.PATHS),
+          f"kernels: the readout cases took the paths {[c['path'] for c in ro_cases]}")
     topk_cases = [topk_case(*c, TOPK, rng, dev, ei_score, ref) for c in (
         ("paper_disjoint", 50, 2500, "disjoint"),
         ("paper_dense", 50, 2500, "dense"),
@@ -1627,7 +1803,8 @@ def main() -> int:
               "same lowest-index rule in every top-k; so both are held "
               "bit-equal, ids included, and every class row bit-equal to the "
               "EIrate kernel with that cost row",
-              eirate=ei_cases, gp_readout=ro_cases, eirate_topk=topk_cases,
+              eirate=ei_cases, gp_readout=ro_cases, gp_readout_launch_floor_ms=floor_ms,
+              eirate_topk=topk_cases,
               eirate_classes=classes_cases))
 
     counters = {"eirate": (ei_score, "launches"),
@@ -1688,17 +1865,23 @@ def main() -> int:
               "B' and carried state) as bf16 hi + lo, about 2^-17 a term, "
               "and are held as well to their arithmetic step for step "
               "(ref.attention_wgmma_route_ref, ref.ssd_chunked_ref) at the "
-              "same tolerance",
+              "same tolerance. Flash's float32 route (tf32x3) takes each "
+              "float32 product as three TF32 products (tf32 hi + lo of each "
+              "factor, the lo x lo term dropped, about 2^-21 a term) and is "
+              "held as well to its arithmetic tile for tile "
+              "(ref.attention_tf32x3_route_ref) at rtol 2e-5 and 2e-5 of max "
+              "|want|: the two differ only in the order of sums and the exp",
               flash_attention=flash_cases, ssd=ssd_cases,
               phase_s=time.perf_counter() - t0))
 
     all_counters = {**counters, "flash_attention": (flash_mod, "launches"),
                     "ssd": (ssd_mod, "launches")}
-    forward = {}
+    forward, served = {}, {}
     for arch in MODEL_ARCHS:
         params, cfg, forward[arch] = model_forward_phase(arch, 0, dev, all_counters)
         emit(forward[arch])
-        emit(serve_phase(arch, params, cfg, 0, dev, all_counters))
+        served[arch] = serve_phase(arch, params, cfg, 0, dev, all_counters)
+        emit(served[arch])
         del params
         torch.cuda.empty_cache()
     main_launches["flash_attention"] = forward["qwen3-4b"]["launches_per_forward"]
@@ -1708,7 +1891,8 @@ def main() -> int:
     # churn trace's run (a) gave one shard, the class-axis kernel on inputs
     # devplane_churn's run (a) gave it; flash attention and the SSD scan on
     # layer 0's own inputs in model_forward (qwen3-4b, mamba2-1.3b)
-    head = {"eirate": ei_cases[0], "gp_readout": ro_cases[2],
+    ro_fig5 = next(c for c in ro_cases if c["case"] == "k50_n50")
+    head = {"eirate": ei_cases[0], "gp_readout": ro_fig5,
             "eirate_topk": rec["main_path_inputs"][0],
             "eirate_classes": dp["main_path_inputs"][0],
             "flash_attention": forward["qwen3-4b"]["layer0_kernel_case"],
@@ -1721,7 +1905,7 @@ def main() -> int:
                                "src/repro/kernels/ei_score.py:235"),
                "eirate_classes": ("src/repro_torch/kernels/csrc/ei_classes.cu",
                                   "src/repro/kernels/ei_score.py:301"),
-               # layer 0 is bf16: the wgmma route (float32 takes flash_attention.cu)
+               # layer 0 is bf16: the wgmma route (float32: tf32x3, flash_attention.cu)
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                                    "src/repro/kernels/flash_attention.py:118"),
                # layer 0 is bf16: the tensor-core route (float32 takes ssd.cu)
@@ -1735,9 +1919,27 @@ def main() -> int:
         # their "operations" floor is FP64: erf or erfc, and exp, in double,
         # as many as the inputs' terms execute
         extra[name]["fp64_instructions"] = head[name]["fp64_instructions"]
+    # the readout at the Fig-5 shape beside the launch floor (an empty
+    # kernel's device time); its paths
+    extra["gp_readout"].update(
+        launch_floor_ms=floor_ms, kernel_ms_above_floor=head["gp_readout"]["kernel_ms"] - floor_ms,
+        paths={c["case"]: c["path"] for c in ro_cases})
+    f32 = next(c for c in flash_cases if c["case"] == "qwen3_4b_f32")
     extra["flash_attention"].update(
         launches_by_route=forward["qwen3-4b"]["flash_launches_by_route"],
-        float32_route_source="src/repro_torch/kernels/csrc/flash_attention.cu")
+        routes={"wgmma": dict(dtype="bfloat16",
+                              source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu"),
+                "tf32x3": dict(dtype="float32",
+                               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                               shape_of_times=f32["case"], ms=f32["ms"],
+                               kernel_ms=f32["kernel_ms"], plain_ms=f32["plain_ms"],
+                               library_ms=f32["library_ms"], bound_ms=f32["bound_ms"],
+                               bound_by=f32["bound_by"],
+                               bound_ms_f32_cuda_cores=f32["bound_ms_f32_cuda_cores"],
+                               # serve's float32 decode-after-prefill check
+                               serve_check_launches=served["qwen3-4b"][
+                                   "decode_after_prefill"]["flash_launches_by_route"][
+                                   "float32"]["tf32x3"])})
     extra["ssd"].update(
         calls_by_route=forward["mamba2-1.3b"]["ssd_calls_by_route"],
         cuda_kernels_per_call=len(head["ssd"]["kernels"]),

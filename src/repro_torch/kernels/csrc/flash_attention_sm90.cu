@@ -3,7 +3,7 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (pallas_call at line 118; body _flash_kernel), for bf16 q, k, v.  Float32
-// inputs take the CUDA-core kernel of flash_attention.cu; the wrapper
+// inputs take the tf32x3 kernel of flash_attention.cu; the wrapper
 // (kernels/flash_attention.py) chooses by dtype.
 //
 //   out[b, q, h] = sum_k p[q, k] v[b, k, h // G] / max(sum_k p[q, k], 1e-30)

@@ -11,8 +11,14 @@ The route is chosen by the inputs' dtype alone:
   keeps about 16 significant bits.  Its arithmetic step for step is
   ``ref.attention_wgmma_route_ref``.  TMA needs 16-byte aligned base
   addresses and strides; other inputs raise.
-- float32 q, k, v take ``"cuda_cores"`` (``csrc/flash_attention.cu``):
-  64-row tiles, float32 multiply-adds on the CUDA cores.
+- float32 q, k, v take ``"tf32x3"`` (``csrc/flash_attention.cu``): both
+  products on the tensor cores (tf32 wgmma, float32 accumulators), each
+  float32 factor split into tf32 hi + lo (rounded to nearest) and each
+  product taken as hi hi + hi lo + lo hi, which keeps float32 accuracy
+  where one TF32 product would not.  Loads go through the threads that
+  split them (cp.async, 16 or 4 bytes), so any base and strides with unit
+  stride along D are taken.  Its arithmetic tile for tile is
+  ``ref.attention_tf32x3_route_ref``.
 
 Both skip the tiles that the causal mask or the window leaves empty, and
 take any sequence length (the Pallas ``S % block`` assert is a tiling rule,
@@ -33,13 +39,13 @@ from . import tma
 
 #: kernel launches since the last reset (launches only, never the CPU path)
 launches = 0
-#: the same launches by route: "wgmma" (bf16), "cuda_cores" (float32)
-launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+#: the same launches by route: "wgmma" (bf16), "tf32x3" (float32)
+launches_by_route = {"wgmma": 0, "tf32x3": 0}
 
 #: dtype -> (route, source under csrc/, C entry point)
 ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_sm90",
                            "flash_attention_sm90_launch"),
-          torch.float32: ("cuda_cores", "flash_attention",
+          torch.float32: ("tf32x3", "flash_attention",
                           "flash_attention_launch")}
 MAX_HEAD_DIM = 256
 

@@ -10,9 +10,12 @@ kernels' loops do.  The data plane's two (:func:`attention_ref`,
 :func:`ssd_ref`) are the definitionally correct formulations -- full-matrix
 attention, the per-step SSD recurrence -- in float32, and the kernels are
 held to them within a stated tolerance.  Beside them, the arithmetic of
-the two bf16 tensor-core routes step for step (:func:`attention_wgmma_route_ref`,
-:func:`ssd_chunked_ref`): the tiles or chunks, where each float32 factor is
-split into bf16 hi + lo, and the float32 sums.  All run on any device: the
+the tensor-core routes step for step: the bf16 routes
+(:func:`attention_wgmma_route_ref`, :func:`ssd_chunked_ref`), where each
+float32 factor is split into bf16 hi + lo, and flash's float32 route
+(:func:`attention_tf32x3_route_ref`), where it is split into tf32 hi + lo
+and each product taken as three; the tiles or chunks, and the float32
+sums.  All run on any device: the
 CPU path of ``ops`` takes the oracles, and ``chip_smoke.py`` holds each
 kernel against them on the card.
 """
@@ -288,6 +291,76 @@ def attention_wgmma_route_ref(q, k, v, *, causal: bool = True,
             o = o + part @ vf[:, :, k0:k0 + tile]
         m = m_new
     return (o / torch.clamp_min(l, 1e-30)).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to tf32 (10 fraction bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: 2^12 added to the int32
+    bit pattern, the low 13 bits cleared (a carry moves into the exponent;
+    subnormals round on the same 2^-136 grid; NaN stays NaN)."""
+    v = v.float()
+    bits = (v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isnan(v), v, bits.view(torch.float32))
+
+
+def tf32_split(v: torch.Tensor, split: bool = True) -> tuple[torch.Tensor, ...]:
+    """The tf32 operands that stand for a float32 factor on the tensor
+    cores, as float32 tensors: (hi, lo) with hi = tf32(v) and
+    lo = tf32(v - hi) (:func:`tf32_rna`; v - hi is exact), about 21
+    significant bits together; or (hi,) alone without ``split``, one TF32
+    rounding (2^-11)."""
+    hi = tf32_rna(v)
+    return (hi, tf32_rna(v - hi)) if split else (hi,)
+
+
+def tf32x3_product(a: torch.Tensor, b: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """a @ b as the float32 flash route takes it on the tensor cores:
+    a_hi b_lo + a_lo b_hi + a_hi b_hi (:func:`tf32_split`; a product of
+    two tf32 values is exact in float32), float32 sums; without ``split``,
+    tf32(a) @ tf32(b), one TF32 product."""
+    if not split:
+        return tf32_rna(a) @ tf32_rna(b)
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def attention_tf32x3_route_ref(q, k, v, *, causal: bool = True,
+                               window: int | None = None, split: bool = True):
+    """The float32 flash route's arithmetic (``csrc/flash_attention.cu``)
+    tile for tile: key tiles of 64 (32 at D > 128), scores
+    :func:`tf32x3_product` (Q, K^T) in float32, the online softmax in
+    float32, O += :func:`tf32x3_product` (P, V), the row sum from the
+    float32 P, masked scores -1e30, masked P 0, the row sum clamped at
+    1e-30.  Without ``split`` every product is one TF32 product (each
+    factor rounded once to tf32).  q (B, S, Hq, D), k/v (B, S, Hkv, D)
+    float32 -> (B, S, Hq, D) float32."""
+    B, S, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    tile = 64 if D <= 128 else 32
+    qf = q.float().permute(0, 2, 1, 3)                            # (B, Hq, S, D)
+    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    scale = 1.0 / float(D) ** 0.5
+    rows = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, Hq, S, 1), NEG_LARGE, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    o = torch.zeros((B, Hq, S, D), device=q.device)
+    for k0 in range(0, S, tile):
+        keys = torch.arange(k0, min(k0 + tile, S), device=q.device)[None, :]
+        live = torch.ones((S, keys.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            live &= keys <= rows
+        if window is not None:
+            live &= keys > rows - window
+        s = tf32x3_product(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2), split) * scale
+        s = torch.where(live, s, NEG_LARGE)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + tf32x3_product(p, vf[:, :, k0:k0 + tile], split)
+        m = m_new
+    return (o / torch.clamp_min(l, 1e-30)).permute(0, 2, 1, 3)
 
 
 def ssd_chunked_ref(x, dt, log_a, b, c, *, chunk: int = 256, split: bool = True):

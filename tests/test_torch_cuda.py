@@ -22,8 +22,11 @@ output is float32 whatever the route: 2e-4 of each value and 2e-4 of the
 largest |want|.  The card's float32 model forward is held to the CPU's at
 2e-4 too; in bfloat16, 5e-2 (the two round the products of their own
 GEMMs).  Flash attention takes its wgmma route for bf16 inputs and its
-CUDA-core route for float32, the SSD scan its tensor-core route for bf16
-and its CUDA-core route for float32; the tests count both.
+tf32x3 route (tf32 wgmma, each product as three TF32 products) for
+float32, held as well to its arithmetic tile for tile
+(``ref.attention_tf32x3_route_ref``) at 2e-5; the SSD scan takes its
+tensor-core route for bf16 and its CUDA-core route for float32; the tests
+count both.
 """
 
 import dataclasses
@@ -297,13 +300,37 @@ def test_sharded_plane_on_card_picks_the_ops_sequence(cuda, kernel):
     assert moved == ((want, 0) if kernel == "eirate_topk" else (0, want))
 
 
-@pytest.mark.parametrize("k,n", [(0, 50), (50, 50), (512, 2500)])
-def test_gp_readout_kernel_matches_plain(cuda, rng, k, n):
-    W = torch.from_numpy((rng.standard_normal((k, n)) * 0.3).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("k,n,offset,width,path", [
+    (0, 50, None, None, "slab"),
+    (50, 50, None, None, "slab"),
+    (7, 45, None, None, "slab"),                # n no multiple of 4
+    (512, 2500, None, None, "column"),
+    (1024, 100_000, None, None, "bulk"),        # service size
+    (300, 40_001, None, None, "column"),        # n no multiple of 4
+    (256, 40_000, 1, None, "column"),           # column slices of a wider W at 1,
+    (256, 40_000, 2, None, "column"),           # 2 and 4 columns in: only the
+    (256, 40_000, 4, None, "bulk"),             # last starts 16-byte aligned
+    (1024, 25_000, 25_000, 100_000, "bulk_deep"),   # a shard's slice, 4 shards
+    (300, 8192, 4, 8200, "bulk_deep"),          # k no multiple of the deep stage
+    (5, 50, 3, None, "slab"),                   # a slice in the slab: 4-byte copies
+    (2, 3000, None, None, "slab"),              # more columns than the slab's threads
+])
+def test_gp_readout_kernel_matches_plain(cuda, rng, k, n, offset, width, path):
+    """Bit-equal to the plain version on every path; ``offset``: W is the
+    columns [offset, offset + n) of a (k, width) buffer (default n + 8).
+    The path is the one the wrapper counts its launches on."""
+    if offset is None:
+        width = n
+    elif width is None:
+        width = n + 8       # 40,008 columns: rows 16-byte aligned
+    W = torch.from_numpy((rng.standard_normal((k, width)) * 0.3).astype(np.float32)).to(cuda)
+    if offset is not None:
+        W = W[:, offset:offset + n]
     alpha = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(cuda)
     mu0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
     kd = (W * W).sum(0) + 1.0
     before = gp_readout.launches
+    by_path = dict(gp_readout.launches_by_path)
     for emit_sd in (False, True):
         got = ops.gp_readout(W, alpha, mu0, kd, emit_sd=emit_sd)
         want = ref.gp_readout_ref(W, alpha, mu0, kd, emit_sd=emit_sd)
@@ -311,6 +338,8 @@ def test_gp_readout_kernel_matches_plain(cuda, rng, k, n):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=0, rtol=0)
     assert gp_readout.launches == before + 2
+    assert {p: c - by_path[p] for p, c in gp_readout.launches_by_path.items()} == {
+        p: 2 if p == path else 0 for p in gp_readout.PATHS}
 
 
 def test_kernel_wrappers_refuse_bad_inputs(cuda, rng):
@@ -354,6 +383,18 @@ def _assert_close(got, want):
                                atol=1e-3 * float(want.abs().max()))
 
 
+# the float32 route against its own arithmetic (ref.attention_tf32x3_route_ref):
+# both take each product as three TF32 products and differ only in the order
+# of the sums and in the exp (base 2 on MUFU.EX2 in the kernel): 2e-5 of each
+# value and 2e-5 of max |want|, a tenth of the float32 tolerance
+ROUTE_F32 = 2e-5
+
+
+def _assert_route(got, want):
+    torch.testing.assert_close(got, want, rtol=ROUTE_F32,
+                               atol=ROUTE_F32 * float(want.abs().max()))
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,dtype,causal", [
     (2, 128, 4, 4, 32, None, torch.float32, True),      # MHA
     (1, 200, 8, 2, 120, None, torch.float32, True),     # D 120, S no multiple of 64
@@ -362,6 +403,8 @@ def _assert_close(got, want):
     (1, 130, 8, 2, 128, 48, torch.bfloat16, True),      # GQA 4:1, window, ragged S
     (1, 1, 2, 1, 16, None, torch.float32, True),        # one step
     (2, 77, 4, 2, 64, None, torch.float32, False),      # not causal
+    (1, 150, 4, 2, 256, None, torch.float32, True),     # D 256 (32-key tiles)
+    (1, 300, 2, 1, 256, 100, torch.float32, False),     # D 256, a window, not causal
 ])
 def test_flash_attention_kernel_matches_plain(cuda, rng, B, S, Hq, Hkv, D, window, dtype,
                                               causal):
@@ -373,6 +416,9 @@ def test_flash_attention_kernel_matches_plain(cuda, rng, B, S, Hq, Hkv, D, windo
     assert flash_mod.launches == before + 1 and got.dtype == dtype
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     _assert_close(got, want)
+    if dtype == torch.float32:
+        _assert_route(got, ref.attention_tf32x3_route_ref(q, k, v, causal=causal,
+                                                          window=window))
 
 
 def _flash_routes(fn):
@@ -398,17 +444,18 @@ def test_flash_bf16_takes_the_wgmma_route(cuda, rng, B, S, Hq, Hkv, D, window, c
                .to(cuda, torch.bfloat16) for h in (Hq, Hkv, Hkv))
     got, routes = _flash_routes(
         lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
-    assert routes == {"wgmma": 1, "cuda_cores": 0} and got.dtype == torch.bfloat16
+    assert routes == {"wgmma": 1, "tf32x3": 0} and got.dtype == torch.bfloat16
     _assert_close(got, ref.attention_ref(q, k, v, causal=causal, window=window))
     _assert_close(got, ref.attention_wgmma_route_ref(q, k, v, causal=causal,
                                                      window=window))
 
 
-def test_flash_float32_takes_the_cuda_core_route(cuda, rng):
+def test_flash_float32_takes_the_tf32x3_route(cuda, rng):
     q = torch.from_numpy(rng.standard_normal((1, 100, 4, 64)).astype(np.float32)).to(cuda)
     got, routes = _flash_routes(lambda: ops.flash_attention(q, q[:, :, :2], q[:, :, 2:]))
-    assert routes == {"wgmma": 0, "cuda_cores": 1}
+    assert routes == {"wgmma": 0, "tf32x3": 1}
     _assert_close(got, ref.attention_ref(q, q[:, :, :2], q[:, :, 2:]))
+    _assert_route(got, ref.attention_tf32x3_route_ref(q, q[:, :, :2], q[:, :, 2:]))
 
 
 @pytest.mark.parametrize("D", [120, 128])
@@ -419,7 +466,7 @@ def test_flash_bf16_takes_views_of_a_fused_projection(cuda, rng, D):
         cuda, torch.bfloat16)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     got, routes = _flash_routes(lambda: ops.flash_attention(q, k, v))
-    assert routes == {"wgmma": 1, "cuda_cores": 0}
+    assert routes == {"wgmma": 1, "tf32x3": 0}
     _assert_close(got, ref.attention_ref(q, k, v))
 
 
@@ -435,6 +482,22 @@ def test_flash_bf16_refuses_what_tma_cannot_copy(cuda):
     with pytest.raises(ValueError, match="16 bytes"):  # head stride 40 bytes
         ops.flash_attention(y, y, y)
     assert flash_mod.launches_by_route == before
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_float32_takes_views_at_any_offset(cuda, rng, offset):
+    """float32 q, k and v as views of one fused projection whose rows are
+    1,444 floats apart, starting ``offset`` floats in: at 0 every row
+    segment is 16-byte aligned (16-byte copies), at 1 none is (4-byte
+    copies).  The float32 route has no alignment rule."""
+    buf = torch.from_numpy(rng.standard_normal((2, 150, 12 * 120 + 4)).astype(
+        np.float32)).to(cuda)
+    qkv = buf[..., offset:offset + 12 * 120].unflatten(-1, (12, 120))
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got, routes = _flash_routes(lambda: ops.flash_attention(q, k, v, window=64))
+    assert routes == {"wgmma": 0, "tf32x3": 1}
+    _assert_close(got, ref.attention_ref(q, k, v, window=64))
+    _assert_route(got, ref.attention_tf32x3_route_ref(q, k, v, window=64))
 
 
 def test_flash_attention_kernel_takes_strided_inputs(cuda, rng):

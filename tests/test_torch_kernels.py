@@ -254,13 +254,13 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(rng):
 
 
 def test_flash_route_is_chosen_by_dtype_alone():
-    """bf16 takes the wgmma kernel, float32 the CUDA-core kernel, and any
-    other dtype raises; the wgmma route's TMA checks refuse a base or a
+    """bf16 takes the wgmma kernel, float32 the tf32x3 kernel (tf32 wgmma,
+    three products each), and any other dtype raises; the wgmma route's TMA checks refuse a base or a
     (b, s, h) stride that is no multiple of 16 bytes, and never look at the
     stride of a dimension of size 1."""
     from repro_torch.kernels import flash_attention as flash_mod
     assert flash_mod.route(torch.bfloat16) == "wgmma"
-    assert flash_mod.route(torch.float32) == "cuda_cores"
+    assert flash_mod.route(torch.float32) == "tf32x3"
     with pytest.raises(TypeError):
         flash_mod.route(torch.float16)
     x = torch.zeros((1, 64, 4, 40), dtype=torch.bfloat16)
@@ -272,6 +272,36 @@ def test_flash_route_is_chosen_by_dtype_alone():
     one = torch.zeros((1, 1, 1, 20), dtype=torch.bfloat16)
     assert tma.strides(one) == [8, 8, 8]
     tma.check("q", one)
+
+
+@pytest.mark.parametrize("k,n,ldw,base,want", [
+    (50, 50, 50, 0, "slab"),                      # the Fig-5 episode's blocks
+    (0, 50, 50, 4, "slab"),                       # no observation yet
+    (2, 3000, 3000, 0, "slab"),                   # 12,002 floats: still one block
+    (1024, 100_000, 100_000, 0, "bulk"),          # service size: 391 blocks
+    (1024, 25_000, 100_000, 100_000, "bulk_deep"),  # a shard's slice: 98 blocks
+    (1024, 33_792, 33_792, 0, "bulk"),            # 132 blocks: every SM
+    (1024, 33_788, 33_788, 0, "bulk"),            # 132 blocks, the last short
+    (1024, 33_536, 33_536, 0, "bulk_deep"),       # 131 blocks
+    (1024, 4096, 16_384, 0, "bulk_deep"),         # the fewest columns for a ring
+    (1024, 4092, 16_384, 0, "column"),
+    (256, 40_000, 40_008, 16, "bulk"),            # a slice 4 columns in
+    (255, 40_000, 40_000, 0, "column"),           # too few rows for a ring
+    (0, 100_000, 100_000, 0, "column"),           # k = 0 at service width
+    (1024, 100_000, 100_000, 4, "column"),        # a slice one column in
+    (1024, 100_000, 100_002, 0, "column"),        # rows 8 bytes apart
+    (300, 40_001, 40_008, 0, "column"),           # n no multiple of 4
+    (512, 2500, 2500, 0, "column"),               # the dense episode's n
+])
+def test_gp_readout_path_takes_the_widest_copy_the_layout_allows(k, n, ldw, base,
+                                                                 want):
+    """Small problems go to the slab kernel (one block, one wave of
+    copies); k >= 256 rows over n >= 4,096 columns to a bulk-copy ring,
+    only from a 16-byte aligned base with rows and n a multiple of 4
+    columns: the 64 KB ring where the blocks of 256 columns cover the 132
+    SMs, the deep one where they do not; the rest to one thread a
+    column."""
+    assert gp_readout.path(k, n, ldw, base, sms=132) == want
 
 
 def test_ssd_route_is_chosen_by_dtype_alone():
@@ -385,3 +415,57 @@ def test_fp64_count_follows_each_fp64_op_under_its_guard():
     assert sum(ln.endswith(inc) for ln in lines) == 4      # none in `other`
     with pytest.raises(RuntimeError):
         chip_smoke.fp64_counted_ptx(PTX_SAMPLE.replace("probe_tau", "probe_x"))
+
+
+@pytest.mark.parametrize("dropped", [0, 2, 5])
+def test_device_ms_pads_its_windows_and_retries_empty_ones(monkeypatch, dropped):
+    """chip_smoke.py's kernel-alone timing: each profiler window opens and
+    closes with PROFILER_PAD_S idle around the calls; a window without a
+    record of the kernel is taken again, up to PROFILER_ATTEMPTS; the mean
+    is a kept window's device time over its count; with no window kept, the
+    call is timed with CUDA events and that is noted."""
+    import importlib.util
+    import types
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    log, windows = [], []
+
+    class Window:
+        def __enter__(self):
+            windows.append(len(windows) < dropped)
+            log.append("enter")
+            return self
+
+        def __exit__(self, *exc):
+            log.append("exit")
+
+        def key_averages(self):
+            rows = [types.SimpleNamespace(key="at::other", count=3, device_time_total=9.0)]
+            if not windows[-1]:
+                rows.append(types.SimpleNamespace(key="void my_kernel<64>(float*)",
+                                                  count=4, device_time_total=10.0))
+            return rows
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Window())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: log.append("sync"))
+    monkeypatch.setattr(chip_smoke.time, "sleep", lambda s: log.append(("sleep", s)))
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters: 0.75)
+    got = chip_smoke.device_ms(lambda: log.append("call"), "my_kernel", 4)
+    attempts = min(dropped + 1, chip_smoke.PROFILER_ATTEMPTS)
+    assert len(windows) == attempts
+    pad = ("sleep", chip_smoke.PROFILER_PAD_S)
+    window = ["enter", pad, "call", "call", "call", "call", "sync", pad, "exit"]
+    assert log[:2] == ["call", "sync"]                    # the warm-up call
+    starts = [i for i, x in enumerate(log) if x == "enter"]
+    assert [log[i:i + len(window)] for i in starts] == [window] * attempts
+    retries = chip_smoke.PROFILER_RETRIES
+    if dropped < chip_smoke.PROFILER_ATTEMPTS:
+        assert got == 10.0 / 4 / 1e3
+        assert retries == [dict(kernels=["my_kernel"], attempt=a, device_names=1)
+                           for a in range(1, dropped + 1)]
+    else:
+        assert got == 0.75
+        assert retries[-1] == dict(kernels=["my_kernel"], timed_by="cuda_events", ms=0.75)
+        assert len(retries) == chip_smoke.PROFILER_ATTEMPTS + 1

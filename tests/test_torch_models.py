@@ -17,6 +17,8 @@ decode-after-prefill checks use ``test_models.py``'s 3e-2.
 """
 
 import dataclasses
+import math
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -166,6 +168,82 @@ def test_wgmma_route_hi_lo_p_is_one_bf16_ulp_from_the_reference(rng, B, S, Hq, H
                                          split_p=False)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(once.float(), want, **tol)
+
+
+def _tf32_rna_exact(x: float) -> float:
+    """x rounded to 10 fraction bits, to nearest, ties away from zero,
+    computed on the value with fractions: the quantum is 2^(e - 11) for
+    |x| = m 2^e (m in [0.5, 1)), and 2^-136 at least (the subnormals'
+    grid); past the largest float32 the result is infinite."""
+    if x == 0.0 or not math.isfinite(x):
+        return x
+    _, e = math.frexp(x)
+    quantum = Fraction(2) ** max(e - 11, -136)
+    val = math.floor(Fraction(abs(x)) / quantum + Fraction(1, 2)) * quantum
+    return math.copysign(math.inf if val >= 2**128 else float(val), x)
+
+
+@pytest.mark.parametrize("x", [
+    pytest.param(1.0 + 2.0**-11, id="tie-up"),
+    pytest.param(1.0 + 3 * 2.0**-11, id="tie-away"),
+    pytest.param(-(1.0 + 2.0**-11), id="negative-tie"),
+    pytest.param(1.0 + 2.0**-11 - 2.0**-23, id="below-tie"),
+    pytest.param(2.0 - 2.0**-11, id="tie-into-next-binade"),
+    pytest.param(2.0 - 2.0**-12, id="carry-into-exponent"),
+    pytest.param(2.0**-126 * (1 + 2.0**-10), id="smallest-normals"),
+    pytest.param(2.0**-127 + 2.0**-137, id="subnormal-tie"),
+    pytest.param(2.0**-130 + 3 * 2.0**-149, id="subnormal"),
+    pytest.param(3 * 2.0**-149, id="tiny-subnormal"),
+    pytest.param(0.0, id="zero"),
+    pytest.param(-0.0, id="negative-zero"),
+    pytest.param(float(np.finfo(np.float32).max), id="overflow"),
+    pytest.param(0.1, id="one-tenth"),
+])
+def test_tf32_split_rounds_like_cvt_rna(x):
+    """``ref.tf32_split`` on the bit pattern (cvt.rna.tf32.f32's rounding)
+    against the rounding computed on the value: hi = tf32(x) and lo =
+    tf32(x - hi), bit for bit, signs of zero included; hi + lo within
+    2^-21 of a normal x."""
+    t = torch.tensor([x], dtype=torch.float32)
+    hi, lo = (float(a) for a in ref.tf32_split(t))
+    want_hi = _tf32_rna_exact(float(t))
+    assert hi == want_hi and math.copysign(1.0, hi) == math.copysign(1.0, want_hi)
+    if math.isfinite(want_hi):
+        assert lo == _tf32_rna_exact(float(t) - hi)
+        if abs(x) >= 2.0**-126:
+            assert abs(hi + lo - float(t)) <= 2.0**-21 * abs(float(t))
+    (once,) = ref.tf32_split(t, split=False)
+    assert float(once) == want_hi
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,causal", [
+    (1, 256, 4, 1, 128, None, True),      # qwen3's head dim, GQA 4:1
+    (2, 128, 4, 2, 64, 48, True),         # a window narrower than a tile
+    (1, 128, 2, 1, 256, None, True),      # D 256 (32-key tiles)
+    (1, 192, 4, 4, 80, None, True),       # D 80: padded to 128 on the card
+    (1, 128, 4, 2, 32, None, False),      # not causal
+])
+def test_tf32x3_route_matches_pallas_and_ref(rng, B, S, Hq, Hkv, D, window, causal):
+    """The float32 flash route's arithmetic (``ref.attention_tf32x3_route_ref``:
+    each product as three TF32 products) against the reference's Pallas
+    kernel in interpret mode and its jnp oracle, and against the port's
+    oracle, at the float32 tolerance (2e-4); the same arithmetic with one
+    TF32 product (each factor rounded once to tf32) misses it."""
+    arrays = [rng.standard_normal((B, S, h, D)).astype(np.float32)
+              for h in (Hq, Hkv, Hkv)]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, "float32") for a in arrays)
+    got = ref.attention_tf32x3_route_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, S, Hq, D)
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                  block_q=64, block_k=64, interpret=True)
+    want = _f32(jref.attention_ref(jq, jk, jv, causal=causal, window=window))
+    for other in (_f32(pallas), want,
+                  ops.flash_attention(tq, tk, tv, causal=causal, window=window).numpy()):
+        np.testing.assert_allclose(got.numpy(), other, **F32)
+    once = ref.attention_tf32x3_route_ref(tq, tk, tv, causal=causal, window=window,
+                                          split=False)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(once.numpy(), want, **F32)
 
 
 # --- kernel 6: SSD ------------------------------------------------------------

@@ -12,7 +12,7 @@ contracts a multiply and an add into one FMA where it can) and with
 ``-fmad=false`` added (each product and sum rounds on its own, as the
 EIrate kernels are built).  Each build is held against the plain version
 and timed with CUDA events at qwen3-4b's layer shape (B 4, S 2,048, Hq 32,
-Hkv 8, D 128; float32 for the CUDA-core route, bf16 for the wgmma route)
+Hkv 8, D 128; float32 for the tf32x3 route, bf16 for the wgmma route)
 and mamba2-1.3b's (B 4, S 2,048, H 64, P 64, N 128, chunk 256; x, b, c
 float32 for the CUDA-core route, bf16 for the tensor-core route), the two
 builds alternating (fma, no_fma, no_fma, fma) over ``ROUNDS``
