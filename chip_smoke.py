@@ -10,9 +10,9 @@ Run from the root of a checkout on a machine with one CUDA card and
                  sm_90a into ``build/repro_torch/`` (one nvcc per source, in
                  parallel; a library already built from the same source is
                  reused), and count the HGMMA (wgmma) instructions in the bf16
-                 flash and SSD libraries' SASS and in the float32 flash
-                 library's (``cuobjdump -sass``; there every HGMMA must be a
-                 TF32 one): none fails; then a probe of the EIrate kernels' term (ndtr's
+                 flash and SSD libraries' SASS and in the float32 flash and
+                 SSD libraries' (``cuobjdump -sass``; there every HGMMA must be
+                 a TF32 one): none fails; then a probe of the EIrate kernels' term (ndtr's
                  erf or erfc, and exp, in double), built with their flags:
                  its DFMA, DADD and DMUL in the SASS must be those of each
                  EIrate kernel, and a counting build of it gives the FP64
@@ -71,16 +71,16 @@ Run from the root of a checkout on a machine with one CUDA card and
                  three TF32 products a float32 one; each case names and
                  checks its route); the SSD
                  kernels at mamba2-1.3b's and zamba2's shapes (float32 x/b/c
-                 take the CUDA-core route, bf16 the tensor-core route) and a
-                 single chunk; the tensor-core routes also against their
-                 arithmetic step for step; each with its tolerance, CUDA-event times of
+                 take the tf32x3 route, bf16 the tensor-core route), a
+                 single chunk and serve's float32 check (one chunk of 513
+                 steps); every route also against its arithmetic step for
+                 step; each with its tolerance, CUDA-event times of
                  the call, plain version and the one PyTorch call that
                  computes the same function (flash:
                  scaled_dot_product_attention; SSD: none), the kernels alone
                  under torch.profiler, and the bound at the peak of the
                  route's arithmetic (bf16 tensor cores; tf32x3: 3 x flops at
-                 the TF32 rate; float32 CUDA cores) with the CUDA-core bound
-                 beside it
+                 the TF32 rate) with the float32 CUDA-core bound beside it
   model_forward  qwen3-4b, then mamba2-1.3b, at full width and depth, random
                  weights from a seed, bf16, B 4 x S 2,048: forward_loss and
                  forward_logits_last on the card, one flash launch a layer
@@ -89,14 +89,15 @@ Run from the root of a checkout on a machine with one CUDA card and
                  other kernel; the kernel held against
                  its plain version on layer
                  0's own inputs; then a CPU twin of the first 2 layers at S 256
-                 in float32 (the card's flash launches on the tf32x3 route),
-                 last logits equal to the card's
+                 in float32 (the card's flash and SSD calls on their tf32x3
+                 routes), last logits equal to the card's
   serve          StaticBatchEngine on each model (4 requests, prompts of 100 to
                  1,000 tokens, 32 new tokens each, 2 slots): waves, decode
                  steps, slot utilisation, prefill and decode times; then one
                  decode_step after prefill of S - 1 tokens against the kernel
                  path's forward_logits_last of S tokens, held in float32
-                 (every flash launch on the tf32x3 route, the check timed);
+                 (every flash and SSD call on its tf32x3 route, the check
+                 timed);
                  in bf16 its drift recorded at 2, 1/4, 1/2 and all of the
                  layers, and the card's bf16 prefill + decode held against
                  the CPU's at 2 layers
@@ -199,10 +200,12 @@ CLASSES_C = 4                  # device classes of the service-size case
 # the data plane
 BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
 TF32_OPS_PER_S = 495e12        # H100 SXM, dense TF32 on the tensor cores
-# flash's float32 route (tf32x3) against its arithmetic tile for tile
-# (ref.attention_tf32x3_route_ref): both take each product as three TF32
-# products and differ only in the order of sums and in the exp (base 2 on
-# MUFU.EX2): 2e-5 of each value and of max |want|, a tenth of DATA_TOL's
+# the float32 routes (tf32x3) of flash and of the SSD scan against their
+# arithmetic tile for tile (ref.attention_tf32x3_route_ref,
+# ref.ssd_tf32x3_route_ref): both take each product as three TF32 products
+# and differ only in the order of sums and in the exp (base 2 on MUFU.EX2;
+# the SSD scan's lcum also by a warp scan): 2e-5 of each value and of max
+# |want|, a tenth of DATA_TOL's
 ROUTE_TOL_F32 = (2e-5, 2e-5)
 # a data-plane kernel against its plain version, by the output's dtype:
 # |got - want| <= rtol |want| + atol_of_max max|want|.  float32: sums in
@@ -227,6 +230,9 @@ SSD_CASES = (                  # name, B, S, H, P, N, chunk, dtype of x, b, c
     ("mamba2_1p3b", 2, 2048, 64, 64, 128, 256, torch.float32),
     ("zamba2_2p7b", 2, 2048, 80, 64, 64, 256, torch.float32),
     ("single_chunk", 2, 256, 64, 64, 128, 256, torch.float32),
+    # serve's float32 decode-after-prefill check on mamba2-1.3b: S 513, one
+    # chunk (models/ssm.py makes an S that the chunk does not divide one)
+    ("serve_check_f32", 1, 513, 64, 64, 128, 513, torch.float32),
     ("mamba2_1p3b_bf16", 2, 2048, 64, 64, 128, 256, torch.bfloat16),
     ("zamba2_2p7b_bf16", 2, 2048, 80, 64, 64, 256, torch.bfloat16),
 )
@@ -1080,29 +1086,29 @@ def auto_ms(fn, budget_ms: float = 150.0, max_iters: int = 50) -> float:
     return cuda_ms(fn, int(min(max(budget_ms / max(first, 1e-3), 3), max_iters)))
 
 
-def bounds(nbytes: float, flops: float, route: str) -> dict:
+def bounds(nbytes: float, flops: float, route: str, elementwise: float = 0.0) -> dict:
     """The bound at the card's peak for the route's arithmetic and, beside
-    it, the bound at the float32 CUDA-core rate: bf16 routes ("wgmma",
-    "tensor_cores") at the tensor cores' 989 TFLOP/s; flash's float32 route
-    ("tf32x3") at three TF32 products for each float32 product, 3 x flops
-    over 495 TFLOP/s; the SSD scan's float32 route ("cuda_cores") at the
-    CUDA cores' 67 TFLOP/s.  Each the larger of that and bytes over 3.35
-    TB/s."""
-    f32_ms = bound_ms(nbytes, flops)[0]
+    it, the bound at the float32 CUDA-core rate (67 TFLOP/s) for all of it:
+    ``flops`` of products at the route's tensor-core peak -- bf16 routes
+    ("wgmma", "tensor_cores") at 989 TFLOP/s, the float32 routes of flash
+    and the SSD scan ("tf32x3") at three TF32 products for each float32
+    product, 3 x flops over 495 TFLOP/s -- and the ``elementwise``
+    operations beside them (decay, mask, scale) at the CUDA cores' 67
+    TFLOP/s, the two units running at once.  Each the largest of those and
+    bytes over 3.35 TB/s."""
+    f32_ms = bound_ms(nbytes, flops + elementwise)[0]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if route == "cuda_cores":
-        b_ms, b_by = bound_ms(nbytes, flops)
-        peak = "float32 CUDA cores, 67 TFLOP/s; 3.35 TB/s"
+    if route == "tf32x3":
+        t_mma = 3 * flops / TF32_OPS_PER_S * 1e3
+        peak = "3 x product flops on the TF32 tensor cores, 495 TFLOP/s"
     else:
-        if route == "tf32x3":
-            t_ops = 3 * flops / TF32_OPS_PER_S * 1e3
-            peak = "3 x flops on the TF32 tensor cores, 495 TFLOP/s; 3.35 TB/s"
-        else:
-            t_ops = flops / BF16_OPS_PER_S * 1e3
-            peak = "bf16 tensor cores, 989 TFLOP/s; 3.35 TB/s"
-        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return dict(bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
-                bound_peak=peak, bound_ms_f32_cuda_cores=f32_ms)
+        t_mma = flops / BF16_OPS_PER_S * 1e3
+        peak = "product flops on the bf16 tensor cores, 989 TFLOP/s"
+    peak += "; elementwise on the CUDA cores, 67 TFLOP/s; 3.35 TB/s"
+    t_ops = max(t_mma, elementwise / FP32_OPS_PER_S * 1e3)
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(bytes=nbytes, flops=flops, elementwise_ops=elementwise, bound_ms=b_ms,
+                bound_by=b_by, bound_peak=peak, bound_ms_f32_cuda_cores=f32_ms)
 
 
 def held(name, got, want, tol=None) -> dict:
@@ -1181,13 +1187,17 @@ def flash_check(name, q, k, v, window, flash_mod, ref):
 def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
     """The SSD kernels of the inputs' route against ``ref.ssd_ref`` (the
     per-step recurrence) on the same card inputs, to DATA_TOL (the output
-    is float32), and the tensor-core route against its arithmetic step for
-    step (``ref.ssd_chunked_ref``) too; CUDA-event times of the call and of
+    is float32), and against the route's arithmetic step for step too
+    (``ref.ssd_chunked_ref`` at DATA_TOL, ``ref.ssd_tf32x3_route_ref`` at
+    ROUTE_TOL_F32); CUDA-event times of the call and of
     the plain version (no single PyTorch call computes the scan), and the
     route's kernels alone (device time under torch.profiler).  The bound
-    counts each input read and y written once, and the chunked algorithm's
-    flops with C B^T taken once per (batch, chunk), as the heads share it,
-    at the peak for x, b and c's type."""
+    counts each input read and y written once, and the operations this S
+    and Q need (:func:`bounds`): the products of the chunked algorithm,
+    C B^T once per (batch, chunk) as the heads share it, C in^T only in a
+    chunk a state enters and (w x)^T B only in one a state leaves (a
+    single chunk runs neither), at the tensor-core peak for x, b and c's
+    type, and the elementwise decay, mask and scale at the CUDA cores'."""
     route = ssd_mod.route(x.dtype)
     before = dict(ssd_mod.launches_by_route)
     got = ssd_mod.ssd_mix(x, dt, la, b, c, chunk=chunk)
@@ -1197,21 +1207,28 @@ def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
     want = ref.ssd_ref(x, dt, la, b, c)
     torch.cuda.synchronize()
     agreement = held(f"ssd {name}", got, want)
-    kernels = ssd_mod.TENSOR_CORE_KERNELS if route == "tensor_cores" else ("ssd_kernel",)
+    kernels = ssd_mod.call_kernels(route, x.shape[1], chunk)
     if route == "tensor_cores":
         agreement["route_ref"] = held(f"ssd {name} (route arithmetic)", got,
                                       ref.ssd_chunked_ref(x, dt, la, b, c, chunk=chunk))
-        if ssd_mod.kernels_per_call(x.shape[1], chunk) == 2:
-            kernels = kernels[::2]
+    else:                  # tf32x3: its arithmetic chunk for chunk, tighter
+        agreement["route_ref"] = held(f"ssd {name} (route arithmetic)", got,
+                                      ref.ssd_tf32x3_route_ref(x, dt, la, b, c, chunk=chunk),
+                                      ROUTE_TOL_F32)
     B, S, H, P = x.shape
     N = b.shape[-1]
     Q = min(chunk, S)
     chunks = [min(Q, S - c0) for c0 in range(0, S, Q)]
-    flops = 0
-    for L in chunks:
+    flops = elementwise = 0                  # what this S and Q run, chunk by chunk
+    for i, L in enumerate(chunks):
         pairs = L * (L + 1) // 2
+        enters, leaves = i > 0, i < len(chunks) - 1   # a state in, a state out
         flops += B * 2 * N * pairs                                  # C B^T
-        flops += B * H * (pairs * (2 * P + 3) + L * P * (4 * N + 1) + 2 * P * N)
+        flops += B * H * pairs * 2 * P                              # W' X
+        flops += B * H * L * P * 2 * N * (enters + leaves)          # C in^T, (w x)^T B
+        elementwise += B * H * pairs * 3                            # W': decay, dt, mask
+        elementwise += B * H * L * P * enters                       # exp(lcum_t) C in^T
+        elementwise += B * H * 2 * P * N * (enters and leaves)      # in_{c+1} = a in_c + S_c
     nbytes = (x.element_size() * (B * S * H * P + 2 * B * S * N)
               + 4 * 2 * B * S * H + 4 * B * S * H * P)
     by_kernel = {}
@@ -1224,7 +1241,7 @@ def ssd_check(name, x, dt, la, b, c, chunk, ssd_mod, ref):
                kernel_ms_by_kernel=by_kernel,
                plain_ms=auto_ms(lambda: ref.ssd_ref(x, dt, la, b, c), max_iters=3),
                library_ms=None)
-    rec.update(bounds(nbytes, flops, route))
+    rec.update(bounds(nbytes, flops, route, elementwise))
     return rec
 
 
@@ -1316,8 +1333,8 @@ def model_forward_phase(arch, seed, dev, counters):
         check(by_route == want_routes, f"model_forward {arch} {fn_name}: flash "
               f"launches by route {by_route}, expected {want_routes}")
         # and every SSD call the tensor-core route
-        want_ssd = ({"tensor_cores": cfg.num_layers, "cuda_cores": 0}
-                    if kernel == "ssd" else {"tensor_cores": 0, "cuda_cores": 0})
+        want_ssd = ({"tensor_cores": cfg.num_layers, "tf32x3": 0}
+                    if kernel == "ssd" else {"tensor_cores": 0, "tf32x3": 0})
         check(ssd_by_route == want_ssd, f"model_forward {arch} {fn_name}: SSD "
               f"calls by route {ssd_by_route}, expected {want_ssd}")
         check(bool(torch.isfinite(out).all()), f"model_forward {arch} {fn_name}: "
@@ -1359,15 +1376,20 @@ def model_forward_phase(arch, seed, dev, counters):
                   "labels": labels[:TWIN_BATCH, :TWIN_SEQ]}
     reset(counters)
     flash_mod.reset_launches()
+    ssd_mod.reset_launches()
     card = forward_logits_last(twin, twin_batch, twin_cfg)
     card_loss = forward_loss(twin, twin_batch, twin_cfg)
     torch.cuda.synchronize()
     twin_launches = read(counters)
-    # float32 compute: every flash launch takes the tf32x3 route
+    # float32 compute: every flash and SSD call takes its tf32x3 route
     twin_routes = dict(flash_mod.launches_by_route)
-    want_twin = {"wgmma": 0, "tf32x3": 2 * TWIN_LAYERS if kernel == "flash_attention" else 0}
-    check(twin_routes == want_twin, f"model_forward {arch}: the float32 twin's flash "
-          f"launches by route {twin_routes}, expected {want_twin}")
+    twin_ssd = dict(ssd_mod.launches_by_route)
+    n_twin = 2 * TWIN_LAYERS
+    want_twin = {"wgmma": 0, "tf32x3": n_twin if kernel == "flash_attention" else 0}
+    want_twin_ssd = {"tensor_cores": 0, "tf32x3": n_twin if kernel == "ssd" else 0}
+    check(twin_routes == want_twin and twin_ssd == want_twin_ssd,
+          f"model_forward {arch}: the float32 twin's calls by route: flash "
+          f"{twin_routes}, expected {want_twin}; SSD {twin_ssd}, expected {want_twin_ssd}")
     t0 = time.perf_counter()
     twin_cpu = tensors_to(twin, "cpu")
     batch_cpu = {k: v.cpu() for k, v in twin_batch.items()}
@@ -1396,7 +1418,7 @@ def model_forward_phase(arch, seed, dev, counters):
                cpu_twin=dict(layers=TWIN_LAYERS, batch=TWIN_BATCH, seq=TWIN_SEQ,
                              dtype="float32", tolerance=TWIN_TOL,
                              flash_launches_by_route=twin_routes,
-                             max_abs_err=twin_err, loss_card=float(card_loss),
+                             ssd_calls_by_route=twin_ssd, max_abs_err=twin_err, loss_card=float(card_loss),
                              loss_cpu=float(cpu_loss), card_launches=twin_launches,
                              cpu_s=cpu_s),
                phase_s=time.perf_counter() - t_phase)
@@ -1420,6 +1442,7 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
     kernel path's forward: held in float32 at full depth; in bf16 held card
     against CPU at TWIN_LAYERS and its drift recorded by depth."""
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.serve import Request, ServeConfig, StaticBatchEngine
 
     t_phase = time.perf_counter()
@@ -1445,11 +1468,12 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
     kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ))
                             .astype(np.int32)).to(dev)
-    drift, check_s, routes = {}, {}, {}
+    drift, check_s, routes, ssd_routes = {}, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
         reset(counters)
         flash_mod.reset_launches()
+        ssd_mod.reset_launches()
         t0 = time.perf_counter()
         got, want = decode_after_prefill(params, toks, c)
         torch.cuda.synchronize()
@@ -1460,13 +1484,18 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
         check(got_launches[kernel] == cfg.num_layers
               and sum(got_launches.values()) == cfg.num_layers,
               f"serve {arch}: the check launched {got_launches}")
-        # flash by dtype: float32 on the tf32x3 route, bf16 on wgmma
+        # flash and SSD by dtype: float32 on their tf32x3 routes, bf16 on
+        # wgmma and tensor_cores
         routes[name] = dict(flash_mod.launches_by_route)
+        ssd_routes[name] = dict(ssd_mod.launches_by_route)
         n_flash = cfg.num_layers if kernel == "flash_attention" else 0
-        want_routes = ({"wgmma": 0, "tf32x3": n_flash} if dtype == torch.float32
-                       else {"wgmma": n_flash, "tf32x3": 0})
-        check(routes[name] == want_routes, f"serve {arch}: the {name} check's flash "
-              f"launches by route {routes[name]}, expected {want_routes}")
+        n_ssd = cfg.num_layers - n_flash
+        f32 = dtype == torch.float32
+        want_routes = {"wgmma": 0 if f32 else n_flash, "tf32x3": n_flash if f32 else 0}
+        want_ssd = {"tensor_cores": 0 if f32 else n_ssd, "tf32x3": n_ssd if f32 else 0}
+        check(routes[name] == want_routes and ssd_routes[name] == want_ssd,
+              f"serve {arch}: the {name} check's calls by route: flash {routes[name]}, "
+              f"expected {want_routes}; SSD {ssd_routes[name]}, expected {want_ssd}")
         drift[str(dtype).replace("torch.", "")] = float(
             (got.float() - want.float()).abs().max())
     # float32: the two paths differ only in the order of sums
@@ -1511,6 +1540,7 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
                 decode_after_prefill=dict(
                     seq=CHECK_SEQ, tolerance=DECODE_TOL, held="float32",
                     max_abs_err=drift, seconds=check_s, flash_launches_by_route=routes,
+                    ssd_calls_by_route=ssd_routes,
                     bf16_max_abs_err_by_layers=by_depth,
                     bf16_cpu_twin=dict(layers=TWIN_LAYERS, seq=TWIN_SEQ,
                                        tolerance=TWIN_TOL_BF16,
@@ -1736,24 +1766,25 @@ def main() -> int:
                    if "Used" in ln and "registers" in ln or "spill" in ln]
             for name, log in _build.BUILD_LOG.items()}
     listings = {src: sass(_build.library_path(src), _build)
-                for src in ("flash_attention_sm90", "ssd_sm90", "flash_attention")}
+                for src in ("flash_attention_sm90", "ssd_sm90", "flash_attention", "ssd")}
     hgmma = {src: sum(count_by_function(text, ("HGMMA",)).values())
              for src, text in listings.items()}
-    # the float32 flash route's products are tf32 HGMMAs: every HGMMA that
-    # writes registers (ptxas adds one 64x8x16.F16 into RZ a kernel, which
-    # computes nothing)
+    # the float32 routes' products are tf32 HGMMAs: every HGMMA that writes
+    # registers (ptxas adds one 64x8x16.F16 into RZ a kernel, which computes
+    # nothing)
     forms = {src: sorted(set(re.findall(r"\bHGMMA\.(\S+) R\d", text)))
              for src, text in listings.items()}
-    hgmma_tf32 = len(re.findall(r"\bHGMMA\.\S*TF32 R\d", listings["flash_attention"]))
-    check(all(hgmma.values()) and hgmma_tf32 > 0
-          and all(f.endswith(".TF32") for f in forms["flash_attention"]),
-          f"build: HGMMA instructions by library {hgmma}, {hgmma_tf32} TF32 "
-          f"in flash_attention, forms {forms}")
+    hgmma_tf32 = {src: len(re.findall(r"\bHGMMA\.\S*TF32 R\d", listings[src]))
+                  for src in ("flash_attention", "ssd")}
+    check(all(hgmma.values()) and all(hgmma_tf32.values())
+          and all(f.endswith(".TF32") for src in hgmma_tf32 for f in forms[src]),
+          f"build: HGMMA instructions by library {hgmma}, TF32 ones {hgmma_tf32}, "
+          f"forms {forms}")
     fp64 = fp64_probe(_build)
     empty = empty_probe(_build)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               per_source=per_source, ptxas=regs, hgmma_instructions=hgmma,
-              hgmma_tf32_instructions={"flash_attention": hgmma_tf32},
+              hgmma_tf32_instructions=hgmma_tf32,
               hgmma_forms=forms,
               ei_fp64_instructions=fp64, empty_probe=empty,
               libraries=[str(_build.library_path(s).relative_to(ROOT))
@@ -1865,12 +1896,14 @@ def main() -> int:
               "B' and carried state) as bf16 hi + lo, about 2^-17 a term, "
               "and are held as well to their arithmetic step for step "
               "(ref.attention_wgmma_route_ref, ref.ssd_chunked_ref) at the "
-              "same tolerance. Flash's float32 route (tf32x3) takes each "
+              "same tolerance. The float32 routes (tf32x3) of both take each "
               "float32 product as three TF32 products (tf32 hi + lo of each "
-              "factor, the lo x lo term dropped, about 2^-21 a term) and is "
-              "held as well to its arithmetic tile for tile "
-              "(ref.attention_tf32x3_route_ref) at rtol 2e-5 and 2e-5 of max "
-              "|want|: the two differ only in the order of sums and the exp",
+              "factor, the lo x lo term dropped, about 2^-21 a term) and are "
+              "held as well to their arithmetic tile for tile "
+              "(ref.attention_tf32x3_route_ref, ref.ssd_tf32x3_route_ref) at "
+              "rtol 2e-5 and 2e-5 of max |want|: each pair differs only in "
+              "the order of sums and the exp (and the SSD scan's lcum, a warp "
+              "scan against torch.cumsum)",
               flash_attention=flash_cases, ssd=ssd_cases,
               phase_s=time.perf_counter() - t0))
 
@@ -1908,7 +1941,7 @@ def main() -> int:
                # layer 0 is bf16: the wgmma route (float32: tf32x3, flash_attention.cu)
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                                    "src/repro/kernels/flash_attention.py:118"),
-               # layer 0 is bf16: the tensor-core route (float32 takes ssd.cu)
+               # layer 0 is bf16: the tensor-core route (float32: tf32x3, ssd.cu)
                "ssd": ("src/repro_torch/kernels/csrc/ssd_sm90.cu",
                        "src/repro/kernels/ssd.py:92")}
     # each kernel alone (device time under torch.profiler) beside its
@@ -1940,10 +1973,29 @@ def main() -> int:
                                serve_check_launches=served["qwen3-4b"][
                                    "decode_after_prefill"]["flash_launches_by_route"][
                                    "float32"]["tf32x3"])})
+    s32 = next(c for c in ssd_cases if c["case"] == "mamba2_1p3b")
+    serve_s32 = next(c for c in ssd_cases if c["case"] == "serve_check_f32")
     extra["ssd"].update(
         calls_by_route=forward["mamba2-1.3b"]["ssd_calls_by_route"],
         cuda_kernels_per_call=len(head["ssd"]["kernels"]),
-        float32_route_source="src/repro_torch/kernels/csrc/ssd.cu")
+        routes={"tensor_cores": dict(dtype="bfloat16",
+                                     source="src/repro_torch/kernels/csrc/ssd_sm90.cu"),
+                "tf32x3": dict(dtype="float32",
+                               source="src/repro_torch/kernels/csrc/ssd.cu",
+                               shape_of_times=s32["case"], ms=s32["ms"],
+                               kernel_ms=s32["kernel_ms"],
+                               kernel_ms_by_kernel=s32["kernel_ms_by_kernel"],
+                               plain_ms=s32["plain_ms"], bound_ms=s32["bound_ms"],
+                               bound_by=s32["bound_by"],
+                               bound_ms_f32_cuda_cores=s32["bound_ms_f32_cuda_cores"],
+                               serve_check_shape_kernel_ms=serve_s32["kernel_ms"],
+                               # the float32 twin's calls and serve's float32
+                               # decode-after-prefill check's
+                               twin_calls=forward["mamba2-1.3b"]["cpu_twin"][
+                                   "ssd_calls_by_route"]["tf32x3"],
+                               serve_check_calls=served["mamba2-1.3b"][
+                                   "decode_after_prefill"]["ssd_calls_by_route"][
+                                   "float32"]["tf32x3"])})
     cases = {"eirate": ei_cases, "gp_readout": ro_cases,
              "eirate_topk": topk_cases + rec["main_path_inputs"],
              "eirate_classes": classes_cases + dp["main_path_inputs"],

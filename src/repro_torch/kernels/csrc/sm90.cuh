@@ -1,6 +1,6 @@
 // PTX wrappers and host helpers shared by the port's Hopper (sm_90a)
-// kernels, flash_attention_sm90.cu, ssd_sm90.cu, flash_attention.cu and
-// gp_readout.cu: mbarriers, TMA tile and bulk copies, cp.async, wgmma
+// kernels, flash_attention_sm90.cu, ssd_sm90.cu, flash_attention.cu, ssd.cu
+// and gp_readout.cu: mbarriers, TMA tile and bulk copies, cp.async, wgmma
 // (bf16 or tf32 in, float32 accumulators) with its descriptors for 128-byte
 // swizzled operands in shared memory, the bf16 and tf32 hi + lo splits of a
 // float32 value, and the 4-d TMA maps built on the host.
@@ -92,6 +92,10 @@ __device__ __forceinline__ void cp_async_commit() {
 // waits until all of this thread's committed groups have landed
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// waits until all of this thread's committed groups but the newest have landed
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // 2^x (MUFU.EX2; flushes subnormal results to 0)
@@ -361,6 +365,32 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 128) = (scale_d ? d : 0) + A (64 x 8) B (8 x 128), tf32, both from
+// shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_ss_n128(float (&d)[64], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64) = (scale_d ? d : 0) + A (64 x 8) B (8 x 64), tf32, A in
 // registers (a0..a3: rows r, r + 8 at columns c, c + 4), B from shared memory
 // K-major
@@ -459,8 +489,10 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
                                               uint64_t db, int scale_d) {
   if constexpr (N == 32) {
     wgmma_tf32_ss_n32(d, da, db, scale_d);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_tf32_ss_n64(d, da, db, scale_d);
+  } else {
+    wgmma_tf32_ss_n128(d, da, db, scale_d);
   }
 }
 

@@ -12,10 +12,10 @@ attention, the per-step SSD recurrence -- in float32, and the kernels are
 held to them within a stated tolerance.  Beside them, the arithmetic of
 the tensor-core routes step for step: the bf16 routes
 (:func:`attention_wgmma_route_ref`, :func:`ssd_chunked_ref`), where each
-float32 factor is split into bf16 hi + lo, and flash's float32 route
-(:func:`attention_tf32x3_route_ref`), where it is split into tf32 hi + lo
-and each product taken as three; the tiles or chunks, and the float32
-sums.  All run on any device: the
+float32 factor is split into bf16 hi + lo, and the float32 routes
+(:func:`attention_tf32x3_route_ref`, :func:`ssd_tf32x3_route_ref`), where
+it is split into tf32 hi + lo and each product taken as three; the tiles
+or chunks, and the float32 sums.  All run on any device: the
 CPU path of ``ops`` takes the oracles, and ``chip_smoke.py`` holds each
 kernel against them on the card.
 """
@@ -324,6 +324,17 @@ def tf32x3_product(a: torch.Tensor, b: torch.Tensor, split: bool = True) -> torc
     return ah @ bl + al @ bh + ah @ bh
 
 
+def tf32x3_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                  split: bool = True) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` with each product taken as
+    :func:`tf32x3_product` takes it: a_hi b_lo + a_lo b_hi + a_hi b_hi,
+    float32 sums; without ``split``, one TF32 product."""
+    if not split:
+        return torch.einsum(eq, tf32_rna(a), tf32_rna(b))
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bh)
+
+
 def attention_tf32x3_route_ref(q, k, v, *, causal: bool = True,
                                window: int | None = None, split: bool = True):
     """The float32 flash route's arithmetic (``csrc/flash_attention.cu``)
@@ -409,5 +420,44 @@ def ssd_chunked_ref(x, dt, log_a, b, c, *, chunk: int = 256, split: bool = True)
             bp = (torch.exp(l_end[:, None, :] - lc) * dc)[..., None] * bc[:, :, None, :]
             s_c = sum(torch.einsum("bshp,bshn->bhpn", xc, part)
                       for part in bf16_split(bp, split))
+            state = s_c if state is None else torch.exp(l_end)[..., None, None] * state + s_c
+    return y
+
+
+def ssd_tf32x3_route_ref(x, dt, log_a, b, c, *, chunk: int = 256, split: bool = True):
+    """The float32 SSD route's arithmetic (``csrc/ssd.cu``) chunk for chunk:
+    the chunked SSD of :func:`ssd_chunked_ref` (chunks of ``min(chunk, S)``
+    steps, the last may be short; lcum, W', S_c and in_c as there, with
+    B''s weight w_s = exp(l_end - lcum_s) dt_s on x: S_c = (w x)^T B), with
+    each of its four products -- C B^T, W' X, C in^T and (w x)^T B --
+    taken as three TF32 products of the float32 factors
+    (:func:`tf32x3_einsum`; one TF32 product without ``split``) and float32
+    sums.  The kernels sum in other orders (the tensor cores, a warp scan
+    for lcum) and take W''s decay as 2^((lcum_t - lcum_s) log2 e) on
+    MUFU.EX2.  x (B, S, H, P), dt/log_a (B, S, H), b/c (B, S, N) float32 ->
+    y (B, S, H, P) float32, without the D * x term."""
+    B, S, H, P = x.shape
+    Q = min(chunk, S)
+    xf, bf, cf = x.float(), b.float(), c.float()
+    dtf, laf = dt.float(), log_a.float()
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    state = None                                         # in_c, (B, H, P, N)
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        xc, bc, cc, dc = (t[:, c0:c0 + L] for t in (xf, bf, cf, dtf))
+        lc = torch.cumsum(laf[:, c0:c0 + L], dim=1)      # (B, L, H)
+        yc = torch.zeros((B, L, H, P), dtype=torch.float32, device=x.device)
+        if state is not None:
+            yc = tf32x3_einsum("btn,bhpn->bthp", cc, state, split) * torch.exp(lc)[..., None]
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+        causal = causal[None, :, :, None]
+        g = tf32x3_einsum("btn,bsn->bts", cc, bc, split)  # (B, t, s)
+        decay = torch.exp(torch.where(causal, lc[:, :, None, :] - lc[:, None, :, :], 0.0))
+        w = torch.where(causal, g[..., None] * decay * dc[:, None, :, :], 0.0)
+        y[:, c0:c0 + L] = yc + tf32x3_einsum("btsh,bshp->bthp", w, xc, split)
+        if c0 + L < S:
+            l_end = lc[:, -1]                            # (B, H)
+            xw = (torch.exp(l_end[:, None, :] - lc) * dc)[..., None] * xc
+            s_c = tf32x3_einsum("bshp,bsn->bhpn", xw, bc, split)
             state = s_c if state is None else torch.exp(l_end)[..., None, None] * state + s_c
     return y

@@ -1,25 +1,31 @@
 """Mamba2 SSD chunk scan: the wrapper of its two CUDA routes.
 
 Counterpart of ``repro.kernels.ssd.ssd_pallas``.  The route is chosen by
-the dtype of x, b and c alone:
+the dtype of x, b and c alone; both run the chunked SSD on the tensor
+cores (:data:`ROUTE_KERNELS`: the chunk states, the pass over the chunks,
+the outputs, and on the float32 route the chunk products between them).
 
-- bfloat16 takes ``"tensor_cores"`` (``csrc/ssd_sm90.cu``): the chunked
-  SSD with its four products on wgmma (float32 accumulators), TMA copying
-  64-step tiles of x, B and C.  The float32 factors that carry dt and the
-  decays (B', W' and the carried state) are split into bf16 hi + lo and
-  each product runs on both, so the result keeps float32 accuracy.  Three
-  CUDA kernels a call (two when the sequence is one chunk): the chunk
-  states, the pass over the chunks, the outputs.  Its plain version step
-  for step is ``ref.ssd_chunked_ref``.  TMA needs 16-byte aligned bases
-  and strides; other inputs raise.  P <= 128 and N <= 128.
-- float32 takes ``"cuda_cores"`` (``csrc/ssd.cu``): one block per
-  (batch * head) walks the chunks in order with the (P x N) state in
-  shared memory, float32 multiply-adds on the CUDA cores.  P <= 128.
+- bfloat16 takes ``"tensor_cores"`` (``csrc/ssd_sm90.cu``): its four
+  products on bf16 wgmma (float32 accumulators), TMA copying 64-step tiles
+  of x, B and C.  The float32 factors that carry dt and the decays (B', W'
+  and the carried state) are split into bf16 hi + lo and each product runs
+  on both, so the result keeps float32 accuracy.  Three CUDA kernels a
+  call, two for a sequence of one chunk (the states kernel still takes
+  lcum).  Its plain version step for step is ``ref.ssd_chunked_ref``.
+  TMA needs 16-byte aligned bases and strides; other inputs raise.
+- float32 takes ``"tf32x3"`` (``csrc/ssd.cu``): the same products on tf32
+  wgmma, every float32 factor split into tf32 hi + lo and each product
+  taken as three TF32 products (hi lo + lo hi + hi hi), raw tiles copied
+  by cp.async (16 or 4 bytes, so any view) and split by the threads.  Four
+  CUDA kernels a call, two for a sequence of one chunk (the chunk products,
+  G = C B^T into a scratch of ``ceil(S / chunk)`` triangles of
+  ``ceil(chunk / 64)``^2 / 2 tiles of 16 KB, and the outputs).  Its plain
+  version step for step is ``ref.ssd_tf32x3_route_ref``.
 
-Both take any sequence length (the last chunk may be short) and any chunk
-length.  The oracle of both is ``ref.ssd_ref``, the per-step recurrence.
-``ops.ssd_mix`` sends CPU tensors to it and CUDA tensors here, where they
-launch a route's kernels or raise.
+Both take any sequence length (the last chunk may be short), any chunk
+length, P <= 128 and N <= 128.  The oracle of both is ``ref.ssd_ref``,
+the per-step recurrence.  ``ops.ssd_mix`` sends CPU tensors to it and CUDA
+tensors here, where they launch a route's kernels or raise.
 """
 
 from __future__ import annotations
@@ -34,18 +40,22 @@ from . import tma
 #: calls that launched a route since the last reset (one a call, whatever
 #: the number of CUDA kernels the route runs; never the CPU path)
 launches = 0
-#: the same calls by route: "tensor_cores" (bf16), "cuda_cores" (float32)
-launches_by_route = {"tensor_cores": 0, "cuda_cores": 0}
+#: the same calls by route: "tensor_cores" (bf16), "tf32x3" (float32)
+launches_by_route = {"tensor_cores": 0, "tf32x3": 0}
 
 #: dtype of x, b and c -> route
-ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
-#: CUDA kernels one call of the tensor-core route runs: the chunk states,
-#: the pass over the chunks (only when there are two or more), the outputs
-TENSOR_CORE_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
-                       "ssd_chunk_out_kernel")
-MAX_HEAD_DIM = 128
-MAX_STATE_TC = 128            # N of the tensor-core route
-SMEM_LIMIT = 232_448          # bytes of shared memory a block may use (H100)
+ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "tf32x3"}
+#: route -> its CUDA kernels in launch order: the chunk states, the pass
+#: over the chunks, (float32) the chunk products G = C B^T and C in^T, the
+#: outputs (which of them a call runs: :func:`call_kernels`)
+ROUTE_KERNELS = {
+    "tensor_cores": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                     "ssd_chunk_out_kernel"),
+    "tf32x3": ("ssd_tf32x3_state_kernel", "ssd_tf32x3_pass_kernel",
+               "ssd_tf32x3_chunk_kernel", "ssd_tf32x3_out_kernel"),
+}
+MAX_HEAD_DIM = 128            # P of both routes
+MAX_STATE = 128               # N of both routes
 
 
 def reset_launches() -> None:
@@ -62,22 +72,26 @@ def route(dtype: torch.dtype) -> str:
     return ROUTES[dtype]
 
 
-def kernels_per_call(S: int, chunk: int) -> int:
-    """CUDA kernels one tensor-core call of sequence length S runs."""
-    return 3 if S > min(chunk, S) else 2
+def call_kernels(name: str, S: int, chunk: int) -> tuple[str, ...]:
+    """The CUDA kernels one call of route ``name`` runs at sequence length
+    S: all of them when the sequence spans two or more chunks; for one
+    chunk, which carries no state, the bf16 route's states kernel (which
+    takes lcum) and outputs, the float32 route's chunk products (G alone)
+    and outputs."""
+    kernels = ROUTE_KERNELS[name]
+    if S > min(chunk, S):
+        return kernels
+    return (kernels[0], kernels[-1]) if name == "tensor_cores" else kernels[2:]
 
 
 @functools.cache
 def _lib():
     from .. import _build
-    lib = _build.load("ssd")
-    lib.ssd_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 13
-        + [ctypes.c_void_p])
-    lib.ssd_launch.restype = ctypes.c_int
-    lib.ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.ssd_smem_bytes.restype = ctypes.c_longlong
-    return lib
+    fn = _build.load("ssd").ssd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
@@ -97,12 +111,10 @@ def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
 
     x (B, S, H, P) and b/c (B, S, N), all float32 or all bfloat16; dt and
     log_a (B, S, H) float32; all on one CUDA device, unit stride along the
-    last axis.  P <= 128; bfloat16 also needs N <= 128 and 16-byte aligned
-    bases and strides of x, b and c."""
+    last axis.  P <= 128 and N <= 128; bfloat16 also needs 16-byte aligned
+    bases and strides of x, b and c.  The shapes are checked before the
+    device, so a refused shape launches nothing on any device."""
     global launches
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the SSD kernel needs CUDA tensors, got {dev}")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     B, S, H, P = x.shape
@@ -116,9 +128,6 @@ def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     name = route(x.dtype)
-    for tn, t in (("dt", dt), ("log_a", log_a), ("b", b), ("c", c)):
-        if t.device != dev:
-            raise ValueError(f"{tn} is on {t.device}, x on {dev}")
     for tn, t in (("b", b), ("c", c)):
         if t.dtype != x.dtype:
             raise TypeError(f"{tn} is {t.dtype}, x is {x.dtype}")
@@ -126,19 +135,25 @@ def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
         if t.stride(-1) != 1:
             raise ValueError(f"{tn} must have unit stride along its last axis, "
                              f"got {t.stride()}")
-    if not 0 < P <= MAX_HEAD_DIM or N <= 0:
-        raise ValueError(f"P {P} must be in 1..{MAX_HEAD_DIM} and N {N} positive")
-    if name == "tensor_cores" and N > MAX_STATE_TC:
-        raise ValueError(f"N {N} exceeds the bf16 (tensor-core) route's "
-                         f"{MAX_STATE_TC}")
+    if not 0 < P <= MAX_HEAD_DIM:
+        raise ValueError(f"P {P} must be in 1..{MAX_HEAD_DIM}")
+    if not 0 < N <= MAX_STATE:
+        raise ValueError(f"N {N} must be in 1..{MAX_STATE}: the {name} route "
+                         f"keeps a chunk's N columns of C and B in shared memory")
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the SSD kernel needs CUDA tensors, got {dev}")
+    for tn, t in (("dt", dt), ("log_a", log_a), ("b", b), ("c", c)):
+        if t.device != dev:
+            raise ValueError(f"{tn} is on {t.device}, x on {dev}")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     if B * S * H == 0:
         return y
     Q = min(chunk, S)
-    if max(B * H, S) >= 2**31 or (name == "tensor_cores" and max(B, H) > 65535):
-        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's int sizes")
+    if max(B * H, S) >= 2**31 or max(B, H) > 65535:
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernels' int sizes")
     if name == "tensor_cores":
         for tn, t in (("x", x), ("b", b), ("c", c)):
             tma.check(tn, t)
@@ -147,25 +162,43 @@ def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
             raise RuntimeError(f"SSD kernel (tensor_cores) launch failed: "
                                f"{tma.launch_error(err)}")
     else:
-        lib = _lib()
-        smem = lib.ssd_smem_bytes(P, N, Q)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"(P, N, chunk) = ({P}, {N}, {Q}) needs {smem} bytes of "
-                             f"shared memory, more than a block's {SMEM_LIMIT}")
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.ssd_launch(
-                x.data_ptr(), dt.data_ptr(), log_a.data_ptr(), b.data_ptr(),
-                c.data_ptr(), y.data_ptr(), 0, B, S, H, P, N, Q,
-                x.stride(0), x.stride(1), x.stride(2),
-                dt.stride(0), dt.stride(1), dt.stride(2),
-                log_a.stride(0), log_a.stride(1), log_a.stride(2),
-                b.stride(0), b.stride(1), c.stride(0), c.stride(1), stream)
+        err = _tf32x3_launch(x, dt, log_a, b, c, y, Q)
         if err != 0:
-            raise RuntimeError(f"SSD kernel (cuda_cores) launch failed: cudaError {err}")
+            raise RuntimeError(f"SSD kernel (tf32x3) launch failed: cudaError {err}")
     launches += 1
     launches_by_route[name] += 1
     return y
+
+
+def _tf32x3_launch(x, dt, log_a, b, c, y, Q: int) -> int:
+    """The float32 route's kernels on the current stream, with their
+    scratch, all float32: the G tiles (B, nc, T, 4096), T = ts (ts + 1) / 2
+    of the ts = ceil(Q / 64) slabs of a chunk; and when the sequence spans
+    two or more chunks l_end (B, H, nc - 1), the chunk states (B, H, nc - 1,
+    P, N) and the entering states' tf32 hi and lo tiles (B, H, nc - 1, PH,
+    2, 64, NP), PH = ceil(P / 64) and NP = N rounded up to 64 or 128."""
+    B, S, H, P = x.shape
+    N = b.shape[2]
+    nc = -(-S // Q)
+    ts = -(-Q // 64)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    gram = torch.empty((B, nc, ts * (ts + 1) // 2, 4096), **f32)
+    l_end = states = tiles = None
+    if nc > 1:
+        l_end = torch.empty((B, H, nc - 1), **f32)
+        states = torch.empty((B, H, nc - 1, P, N), **f32)
+        tiles = torch.empty((B, H, nc - 1, -(-P // 64), 2, 64, 64 if N <= 64 else 128),
+                            **f32)
+    ptrs = [None if t is None else t.data_ptr() for t in (l_end, states, tiles, gram)]
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return fn(x.data_ptr(), dt.data_ptr(), log_a.data_ptr(), b.data_ptr(),
+                  c.data_ptr(), y.data_ptr(), *ptrs, B, S, H, P, N, Q,
+                  x.stride(0), x.stride(1), x.stride(2), b.stride(0), b.stride(1),
+                  c.stride(0), c.stride(1), dt.stride(0), dt.stride(1), dt.stride(2),
+                  log_a.stride(0), log_a.stride(1), log_a.stride(2), stream)
 
 
 def _tensor_core_launch(x, dt, log_a, b, c, y, Q: int) -> int:

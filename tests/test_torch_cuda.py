@@ -25,8 +25,10 @@ GEMMs).  Flash attention takes its wgmma route for bf16 inputs and its
 tf32x3 route (tf32 wgmma, each product as three TF32 products) for
 float32, held as well to its arithmetic tile for tile
 (``ref.attention_tf32x3_route_ref``) at 2e-5; the SSD scan takes its
-tensor-core route for bf16 and its CUDA-core route for float32; the tests
-count both.
+tensor-core route for bf16 and its tf32x3 route (the same chunked products
+on tf32 wgmma, three TF32 products each) for float32, held as well to its
+arithmetic chunk for chunk (``ref.ssd_tf32x3_route_ref``) at 2e-5; the
+tests count both.
 """
 
 import dataclasses
@@ -567,15 +569,27 @@ def test_ssd_tensor_cores_match_plain(cuda, rng, B, S, H, P, N, chunk):
     per-step recurrence."""
     args = _ssd_inputs(rng, B, S, H, P, N, torch.bfloat16, cuda)
     got, routes = _ssd_routes(lambda: ops.ssd_mix(*args, chunk=chunk))
-    assert routes == {"tensor_cores": 1, "cuda_cores": 0}
+    assert routes == {"tensor_cores": 1, "tf32x3": 0}
     _assert_ssd_close(got, ref.ssd_chunked_ref(*args, chunk=chunk))
     _assert_ssd_close(got, ref.ssd_ref(*args))
 
 
-def test_ssd_float32_takes_the_cuda_core_route(cuda, rng):
-    args = _ssd_inputs(rng, 1, 300, 3, 64, 128, torch.float32, cuda)
-    got, routes = _ssd_routes(lambda: ops.ssd_mix(*args, chunk=128))
-    assert routes == {"tensor_cores": 0, "cuda_cores": 1}
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 300, 3, 64, 128, 128),    # last chunk short; odd H: one head an output block
+    (2, 96, 4, 32, 16, 32),       # mamba2-1.3b's smoke config
+    (1, 513, 4, 64, 128, 513),    # serve's check: one chunk, Q = S = 513
+    (2, 2048, 4, 64, 128, 256),   # mamba2-1.3b's widths, eight chunks
+    (1, 70, 2, 128, 32, 32),      # P 128: two 64-column halves
+    (1, 100, 2, 30, 18, 32),      # P, N no multiple of 4: 4-byte copies
+    (1, 1, 2, 64, 128, 256),      # one step
+])
+def test_ssd_float32_takes_the_tf32x3_route(cuda, rng, B, S, H, P, N, chunk):
+    """The float32 route against its arithmetic chunk for chunk (2e-5) and
+    against the per-step recurrence (2e-4)."""
+    args = _ssd_inputs(rng, B, S, H, P, N, torch.float32, cuda)
+    got, routes = _ssd_routes(lambda: ops.ssd_mix(*args, chunk=chunk))
+    assert routes == {"tensor_cores": 0, "tf32x3": 1}
+    _assert_route(got, ref.ssd_tf32x3_route_ref(*args, chunk=chunk))
     _assert_ssd_close(got, ref.ssd_ref(*args))
 
 
@@ -592,8 +606,29 @@ def test_ssd_tensor_cores_take_views_of_a_fused_projection(cuda, rng, H, P, N, S
     dt = torch.from_numpy(rng.uniform(0.001, 0.1, (2, S, H)).astype(np.float32)).to(cuda)
     la = -dt * 1.3
     got, routes = _ssd_routes(lambda: ops.ssd_mix(x, dt, la, b, c, chunk=256))
-    assert routes == {"tensor_cores": 1, "cuda_cores": 0}
+    assert routes == {"tensor_cores": 1, "tf32x3": 0}
     _assert_ssd_close(got, ref.ssd_chunked_ref(x, dt, la, b, c, chunk=256))
+    _assert_ssd_close(got, ref.ssd_ref(x, dt, la, b, c))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("H,P,N,S", [(64, 64, 128, 512), (4, 32, 16, 96)])
+def test_ssd_float32_takes_views_of_a_fused_projection(cuda, rng, H, P, N, S, offset):
+    """float32 x, b and c as views of one (B, S, H P + 2 N) projection, as
+    ``models/ssm.py`` makes them, starting ``offset`` floats into a wider
+    buffer: at 0 every row segment is 16-byte aligned (16-byte copies), at
+    1 only 4-byte aligned (4-byte copies).  The float32 route has no
+    alignment rule."""
+    buf = torch.from_numpy(rng.standard_normal((2, S, H * P + 2 * N + 4)).astype(
+        np.float32)).to(cuda)
+    xbc = buf[..., offset:offset + H * P + 2 * N]
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    b, c = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (2, S, H)).astype(np.float32)).to(cuda)
+    la = -dt * 1.3
+    got, routes = _ssd_routes(lambda: ops.ssd_mix(x, dt, la, b, c, chunk=256))
+    assert routes == {"tensor_cores": 0, "tf32x3": 1}
+    _assert_route(got, ref.ssd_tf32x3_route_ref(x, dt, la, b, c, chunk=256))
     _assert_ssd_close(got, ref.ssd_ref(x, dt, la, b, c))
 
 
@@ -611,7 +646,7 @@ def test_ssd_bf16_refuses_what_tma_cannot_copy(cuda, rng):
     with pytest.raises(ValueError, match="16 bytes"):     # step stride 20 bytes
         b10 = torch.zeros((1, 64, 10), device=cuda, dtype=torch.bfloat16)
         ops.ssd_mix(x, dt, la, b10, b10)
-    with pytest.raises(ValueError, match="tensor-core"):  # N beyond the route
+    with pytest.raises(ValueError, match="N 256"):        # N beyond the route
         b256 = torch.zeros((1, 64, 256), device=cuda, dtype=torch.bfloat16)
         ops.ssd_mix(x, dt, la, b256, b256)
     assert ssd_mod.launches_by_route == before
@@ -645,6 +680,11 @@ def test_data_plane_wrappers_refuse_bad_inputs(cuda, rng):
     wide = torch.zeros((1, 32, 2, 160), device=cuda)
     with pytest.raises(ValueError):                 # P beyond the kernel
         ops.ssd_mix(wide, dt, la, b, c)
+    b256 = torch.zeros((1, 32, 256), device=cuda)
+    before = dict(ssd_mod.launches_by_route)
+    with pytest.raises(ValueError, match="N 256"):  # N beyond the float32 route
+        ops.ssd_mix(x, dt, la, b256, b256)
+    assert ssd_mod.launches_by_route == before
 
 
 def _to(tree, device):

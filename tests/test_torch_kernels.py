@@ -305,14 +305,18 @@ def test_gp_readout_path_takes_the_widest_copy_the_layout_allows(k, n, ldw, base
 
 
 def test_ssd_route_is_chosen_by_dtype_alone():
-    """bf16 x, b and c take the tensor-core kernels, float32 the CUDA-core
-    kernel, any other dtype raises; the TMA checks pass the views of the
-    model's fused projection and refuse a base that is no multiple of 16
-    bytes; a refused launch names its reason.  One call runs three CUDA
-    kernels, two when the sequence is one chunk."""
+    """bf16 x, b and c take the tensor-core kernels, float32 the tf32x3
+    kernels (tf32 wgmma, three products each), any other dtype raises; the
+    TMA checks pass the views of the model's fused projection and refuse a
+    base that is no multiple of 16 bytes; a refused launch names its
+    reason.  A call runs the route's three (bf16) or four (float32) CUDA
+    kernels; when the sequence is one chunk, two: the bf16 route's states
+    kernel (it takes lcum) and outputs, the float32 route's chunk products
+    (G alone) and outputs."""
     from repro_torch.kernels import ssd as ssd_mod
     assert ssd_mod.route(torch.bfloat16) == "tensor_cores"
-    assert ssd_mod.route(torch.float32) == "cuda_cores"
+    assert ssd_mod.route(torch.float32) == "tf32x3"
+    assert set(ssd_mod.launches_by_route) == {"tensor_cores", "tf32x3"}
     with pytest.raises(TypeError):
         ssd_mod.route(torch.float16)
     xbc = torch.zeros((2, 64, 4096 + 2 * 128), dtype=torch.bfloat16)  # mamba2-1.3b
@@ -324,9 +328,34 @@ def test_ssd_route_is_chosen_by_dtype_alone():
     assert tma.strides(xbc[..., 4096:4224]) == [64 * 4352, 4352]
     assert tma.launch_error(10000).startswith("a base address")
     assert "CUresult 1" in tma.launch_error(10003)
-    assert ssd_mod.kernels_per_call(2048, 256) == 3
-    assert ssd_mod.kernels_per_call(256, 256) == ssd_mod.kernels_per_call(96, 256) == 2
-    assert len(ssd_mod.TENSOR_CORE_KERNELS) == 3
+    for name in ("tensor_cores", "tf32x3"):
+        assert ssd_mod.call_kernels(name, 300, 128) == ssd_mod.ROUTE_KERNELS[name]
+    assert len(ssd_mod.call_kernels("tensor_cores", 2048, 256)) == 3
+    assert len(ssd_mod.call_kernels("tf32x3", 2048, 256)) == 4
+    assert len(ssd_mod.call_kernels("tensor_cores", 256, 256)) == 2
+    assert len(ssd_mod.call_kernels("tensor_cores", 96, 256)) == 2
+    assert ssd_mod.call_kernels("tf32x3", 513, 513) == ("ssd_tf32x3_chunk_kernel",
+                                                        "ssd_tf32x3_out_kernel")
+    assert len(ssd_mod.call_kernels("tf32x3", 96, 256)) == 2
+    assert len(ssd_mod.ROUTE_KERNELS["tensor_cores"]) == 3
+    assert len(ssd_mod.ROUTE_KERNELS["tf32x3"]) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_refuses_a_state_wider_than_128_on_either_route(dtype):
+    """N > 128 is refused, with its reason, before any device is looked at,
+    so nothing launches and no call is counted."""
+    from repro_torch.kernels import ssd as ssd_mod
+    before = (ssd_mod.launches, dict(ssd_mod.launches_by_route))
+    x = torch.zeros((1, 8, 2, 16), device="meta", dtype=dtype)
+    dt = torch.zeros((1, 8, 2), device="meta")
+    b = torch.zeros((1, 8, 256), device="meta", dtype=dtype)
+    with pytest.raises(ValueError, match="N 256 must be in 1..128"):
+        ops.ssd_mix(x, dt, dt, b, b)
+    x, dt, b = (torch.zeros(t.shape, dtype=t.dtype) for t in (x, dt, b))
+    with pytest.raises(ValueError, match="N 256"):     # CPU tensors, straight to the wrapper
+        ssd_mod.ssd_mix(x, dt, dt, b, b)
+    assert (ssd_mod.launches, ssd_mod.launches_by_route) == before
 
 
 def test_topk_buffers_hold_the_candidates_and_the_outputs():

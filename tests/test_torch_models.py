@@ -276,9 +276,10 @@ def test_ssd_plain_matches_pallas_and_ref(rng, S, H, P, N, chunk, dtype):
 
 
 # the SSD output is float32 whatever the route: 2e-4 of each value and 2e-4
-# of max |want| (chip_smoke.py's DATA_TOL for float32): the tensor-core
-# route's products keep about 16 bits a term (bf16 hi + lo), and its sums
-# run in another order than the per-step recurrence's
+# of max |want| (chip_smoke.py's DATA_TOL for float32): the bf16 route's
+# products keep about 16 bits a term (bf16 hi + lo), the float32 route's
+# about 21 (tf32 hi + lo, three products), and their sums run in another
+# order than the per-step recurrence's
 def _data_tol_f32(got, want):
     np.testing.assert_allclose(got, want, rtol=2e-4,
                                atol=2e-4 * float(np.abs(want).max()))
@@ -329,6 +330,45 @@ def test_ssd_single_bf16_rounding_of_the_factors_misses_the_tolerance(rng):
     want = ref.ssd_ref(x, dt, la, b, c).numpy()
     _data_tol_f32(ref.ssd_chunked_ref(x, dt, la, b, c, chunk=256).numpy(), want)
     once = ref.ssd_chunked_ref(x, dt, la, b, c, chunk=256, split=False).numpy()
+    with pytest.raises(AssertionError):
+        _data_tol_f32(once, want)
+
+
+@pytest.mark.parametrize("S,H,P,N,chunk", [
+    (128, 2, 32, 16, 32),       # mamba2-1.3b's smoke widths, four chunks
+    (100, 2, 16, 8, 32),        # ragged last chunk (100 = 3 x 32 + 4)
+    (513, 1, 64, 128, 513),     # serve's check: one chunk, Q = S = 513, one head
+    (512, 2, 64, 128, 256),     # mamba2-1.3b's widths, two chunks
+])
+def test_ssd_tf32x3_route_matches_pallas_and_ref(rng, S, H, P, N, chunk):
+    """``ref.ssd_tf32x3_route_ref`` (the float32 route's arithmetic: every
+    product as three TF32 products) on float32 x, B and C against the
+    reference's Pallas kernel in interpret mode (where the chunk divides S),
+    its per-step oracle, and the port's oracle ``ref.ssd_ref``."""
+    B = 1
+    x, dt, la, b, c = _ssd_case(rng, B, S, H, P, N)
+    (jx, tx), (jb, tb), (jc, tc) = (_both(a, "float32") for a in (x, b, c))
+    tdt, tla = torch.from_numpy(dt), torch.from_numpy(la)
+    got = ref.ssd_tf32x3_route_ref(tx, tdt, tla, tb, tc, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, P)
+    got = got.numpy()
+    if S % min(chunk, S) == 0:
+        _data_tol_f32(got, np.asarray(jops.ssd_mix(jx, jnp.asarray(dt), jnp.asarray(la),
+                                                   jb, jc, chunk=chunk, interpret=True)))
+    _data_tol_f32(got, np.asarray(jref.ssd_ref(jx, jnp.asarray(dt), jnp.asarray(la),
+                                               jb, jc)))
+    _data_tol_f32(got, ref.ssd_ref(tx, tdt, tla, tb, tc).numpy())
+
+
+def test_ssd_single_tf32_product_misses_the_tolerance(rng):
+    """At mamba2-1.3b's widths (Q 256, P 64, N 128; two chunks, two heads)
+    the float32 route's arithmetic with each product taken once in TF32
+    (each factor rounded once to tf32, 2^-11) misses the float32 tolerance
+    that the route is held to; with three TF32 products it meets it."""
+    x, dt, la, b, c = (torch.from_numpy(a) for a in _ssd_case(rng, 1, 512, 2, 64, 128))
+    want = ref.ssd_ref(x, dt, la, b, c).numpy()
+    _data_tol_f32(ref.ssd_tf32x3_route_ref(x, dt, la, b, c, chunk=256).numpy(), want)
+    once = ref.ssd_tf32x3_route_ref(x, dt, la, b, c, chunk=256, split=False).numpy()
     with pytest.raises(AssertionError):
         _data_tol_f32(once, want)
 

@@ -33,6 +33,12 @@ checkout's ``build/``, the paths named in ``--paths`` (default all):
            ``scaled_dot_product_attention`` on the same inputs (CUDA
            events); the kernel alone at the serve check's shape (B 1, S
            513)
+  ssd      the SSD scan on float32 x, b, c at mamba2-1.3b's layer shape,
+           B 2 (S 2,048, H 64, P 64, N 128, chunk 256): the route's kernels
+           alone (the sum of their device times under torch.profiler) and
+           the wrapper's call (CUDA events), after holding it to
+           ``ref.ssd_ref`` at ``chip_smoke.DATA_TOL``; the kernels alone
+           at the serve check's shape (B 1, S 513, one chunk of 513)
 
 Each side runs once first as a warm-up, printed and left out (a fresh
 machine's first process runs several times slower).  Then the sides
@@ -56,7 +62,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PATHS = ("churn", "devplane", "fig5", "readout", "flash")
+PATHS = ("churn", "devplane", "fig5", "readout", "flash", "ssd")
 
 # the paths sys.argv[2] names (comma-separated) in the checkout at sys.argv[1]
 RUN = """
@@ -73,6 +79,7 @@ from repro_torch.core.tenancy import _matern_block_chol, _matern_draw
 from repro_torch.devplane import DevPlaneEngine, two_class_registry
 from repro_torch.kernels import ei_score, gp_readout, ref
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import ssd as ssd_mod
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 sha = lambda x: hashlib.sha256(repr(x).encode()).hexdigest()
@@ -146,6 +153,28 @@ if "flash" in paths:
     q, k, v = (t[:1, :513] for t in (q, k, v))
     out["flash_f32_s513"] = dict(ms=cs.device_ms(lambda: flash_mod.flash_attention(q, k, v),
                                                  "flash", 20))
+if "ssd" in paths:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    def ssd_inputs(B, S, H, P, N):
+        x = torch.randn((B, S, H, P), generator=gen, device=dev)
+        dt = torch.rand((B, S, H), generator=gen, device=dev) * 0.099 + 0.001
+        la = -dt * (torch.rand((H,), generator=gen, device=dev) * 1.5 + 0.5)
+        b, c = (torch.randn((B, S, N), generator=gen, device=dev) for _ in range(2))
+        return x, dt, la, b, c
+    def kernels(S, chunk):
+        # this checkout's float32 kernels: a route's list, or the one
+        # CUDA-core kernel of a checkout that has no tf32x3 route
+        if "tf32x3" in getattr(ssd_mod, "ROUTE_KERNELS", {}):
+            return ssd_mod.call_kernels("tf32x3", S, chunk)
+        return ("ssd_kernel",)
+    args = ssd_inputs(2, 2048, 64, 64, 128)
+    call = lambda: ssd_mod.ssd_mix(*args, chunk=256)
+    cs.held("ssd float32", call(), ref.ssd_ref(*args))
+    out["ssd_f32"] = dict(ms=cs.device_ms(call, kernels(2048, 256), 10))
+    out["ssd_f32_call"] = dict(ms=cs.cuda_ms(call, 10))
+    args = ssd_inputs(1, 513, 64, 64, 128)
+    out["ssd_f32_s513"] = dict(ms=cs.device_ms(lambda: ssd_mod.ssd_mix(*args, chunk=513),
+                                               kernels(513, 513), 20))
 print(json.dumps(out))
 """
 
