@@ -33,6 +33,15 @@ Run from the root of a checkout on a machine with one CUDA card and
                  and every decision launched the EIrate kernel once
   episode_dense  the same on a 1 x 2,048 prior, which takes the dense GP engine
   baselines      round_robin and random on the Azure workload, card vs CPU
+  figures        the port's paper-figure drivers (repro_torch.benchmarks,
+                 Fig. 2-5) on the card, Fig. 2-4 at the JAX drivers' full
+                 protocol (Fig. 2 and 4: 8 seeds; Fig. 3: 5), Fig. 5 at
+                 BENCH_FAST's (M 1, 4, 16 x 2 repeats of the 50 x 50
+                 Matern problem; the full protocol takes over 90 s):
+                 every row, the EIrate and readout launches of exactly those
+                 runs (EIrate = the mdmt picks), every t_reach_* finite; then
+                 Fig. 2-4 at one seed on the card and on the CPU: equal
+                 derived fields; speedup_vs_M1 and linearity recorded
   readout_decide the sharded plane's readout -> score -> pick at service size
                  (k_obs 1,024, n 100,000, N 1,000) at S = 1 and S = 4 shards
                  on the card, both score routes, against the unsharded
@@ -101,6 +110,15 @@ Run from the root of a checkout on a machine with one CUDA card and
                  in bf16 its drift recorded at 2, 1/4, 1/2 and all of the
                  layers, and the card's bf16 prefill + decode held against
                  the CPU's at 2 layers
+  train_pieces   one AdamW step (repro_torch.train) on mamba2-1.3b's full
+                 parameter tree (bf16 params and gradients, float32
+                 moments) with seeded gradients that clip, held against a
+                 CPU twin of the first 2 layers (float32 rtol 1e-6, bf16 one
+                 ulp), its CUDA-event time beside its bytes bound; int8
+                 compression of the same gradients, codes and scales equal
+                 to the CPU's leaf for leaf; and the cost model's analytic
+                 step seconds (H100 peaks) for qwen3-4b and mamba2-1.3b at
+                 each applicable shape on one card
 
 Then a line listing each kernel, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -247,6 +265,33 @@ SERVE_PROMPTS = (100, 400, 700, 1000)
 SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 32, 2, 2048
 CHECK_SEQ = 513                # decode after prefill: S - 1 = 512 prefilled
 DECODE_TOL = 3e-2              # tests/test_models.py's
+
+# figures: the port's paper-figure drivers, seeds per figure (Fig. 5:
+# repeats of the 50 x 50 Matern problem at each M of FIG5_DEVICES); the CPU
+# twin of Fig. 2-4 at FIG_TWIN_SEEDS.  Fig. 2-4 at the JAX drivers' full
+# (not BENCH_FAST) protocol; Fig. 5 at BENCH_FAST's (1, 4, 16) x 2, since
+# its full protocol, (1, 2, 4, 8, 16) x 5, took 121.8 s on an H100 80GB
+# HBM3 at 700 W (PERF.md, run 20A), over the 90 s this phase gives it
+# (`python -m repro_torch.benchmarks.run fig5` runs it in full)
+FIG_SEEDS = {"fig2": 8, "fig3": 5, "fig4": 8, "fig5": 2}
+FIG5_DEVICES = (1, 4, 16)
+FIG5_PROTOCOL = ("BENCH_FAST's (1, 4, 16) x 2: the full (1, 2, 4, 8, 16) x 5 "
+                 "took 121.8 s (PERF.md, run 20A), over 90 s")
+FIG_TWIN_SEEDS = 1
+
+# train_pieces: one AdamW step and one compression of the gradients on
+# mamba2-1.3b's full parameter tree (bf16 params and gradients, float32
+# moments), held against a CPU twin; the twin's AdamW takes the first
+# TRAIN_TWIN_LAYERS layers of the stacked blocks (with the card's global
+# norm), its compression every leaf whole (a scale is per leaf)
+TRAIN_ARCH = "mamba2-1.3b"
+TRAIN_TWIN_LAYERS = 2
+TRAIN_STEP = 10                # the state's step before the update (warmup)
+TRAIN_GRAD_STD = 1e-3          # N(0, std) gradients: a global norm of ~36 at
+                               # 1.3e9 parameters, so the step clips
+TRAIN_TOL_F32 = 1e-6           # rtol: the same float32 ops in the same order
+                               # (pow may round apart on the two)
+COST_ARCHS = ("qwen3-4b", "mamba2-1.3b")
 
 
 def emit(obj) -> None:
@@ -1550,6 +1595,249 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
                 phase_s=time.perf_counter() - t_phase)
 
 
+# ---- the paper-figure drivers and the trial executor's pieces -------------------
+
+def card_name_and_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def figure_rows(fn, *argv) -> tuple[list[dict], float]:
+    """Runs a figure driver with ``argv`` as its command line, capturing its
+    ``name,us_per_call,derived`` rows; (rows, seconds)."""
+    import contextlib
+    import io
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = ["chip_smoke.py", *argv]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn()
+    finally:
+        sys.argv = saved
+    seconds = time.perf_counter() - t0
+    rows = []
+    for line in buf.getvalue().splitlines():
+        name, us, derived = line.split(",", 2)
+        rows.append(dict(name=name, us_per_call=float(us),
+                         derived=dict(kv.split("=", 1) for kv in derived.split(";"))))
+    return rows, seconds
+
+
+def figures_phase(dev, counters):
+    """The port's Fig. 2-5 drivers on the card (FIG_SEEDS, FIG5_DEVICES),
+    with the kernel launches of exactly those runs; then Fig. 2-4 at one
+    seed on the card and on the CPU (plain versions): equal derived fields."""
+    from repro_torch.benchmarks import common as bench
+    from repro_torch.benchmarks import fig2_single_device as f2
+    from repro_torch.benchmarks import fig3_multi_device as f3
+    from repro_torch.benchmarks import fig4_four_devices as f4
+    from repro_torch.benchmarks import fig5_synthetic_speedup as f5
+
+    # every episode's policy, decisions and policy trials (user_hint -1:
+    # an mdmt pick; each launches the EIrate kernel once)
+    episodes = []
+
+    def counted(res_fn):
+        def run(problem, policy, num_devices, seed, device=None):
+            res = res_fn(problem, policy, num_devices, seed, device)
+            episodes.append((policy, res.decisions,
+                             sum(t.user_hint == -1 for t in res.trials)))
+            return res
+        return run
+
+    for mod in (f2, f3, f5):
+        mod.episode = counted(bench.episode)
+    f5.DEVICES = FIG5_DEVICES
+    mains = {"fig2": f2.main, "fig3": f3.main, "fig4": f4.main, "fig5": f5.main}
+    t_phase = time.perf_counter()
+    reset(counters)
+    figs = {}
+    for fig, main_fn in mains.items():
+        rows, seconds = figure_rows(lambda: main_fn(device=dev),
+                                    "--seeds", str(FIG_SEEDS[fig]))
+        figs[fig] = dict(seeds=FIG_SEEDS[fig], seconds=seconds, rows=rows)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    wall = time.perf_counter() - t_phase
+    n_episodes = len(episodes)
+    mdmt = [e for e in episodes if e[0] == "mdmt"]
+    mdmt_decisions = sum(e[1] for e in mdmt)
+    mdmt_picks = sum(e[2] for e in mdmt)
+    check(launches["eirate"] == mdmt_picks and launches["gp_readout"] > 0
+          and launches["eirate_topk"] == launches["eirate_classes"] == 0,
+          f"figures: launches {launches}, expected {mdmt_picks} EIrate launches "
+          "(one per mdmt pick), some readouts and no other kernel")
+    for fig, rec in figs.items():
+        for row in rec["rows"]:
+            reached = {k: v for k, v in row["derived"].items() if k.startswith("t_reach_")}
+            check(bool(reached) and all(np.isfinite(float(v)) for v in reached.values()),
+                  f"figures: {row['name']} did not reach a threshold: {reached}")
+    # Fig. 2-4 at one seed, card against CPU
+    twin = {}
+    for fig in ("fig2", "fig3", "fig4"):
+        card, _ = figure_rows(lambda: mains[fig](device=dev), "--seeds", str(FIG_TWIN_SEEDS))
+        cpu, cpu_s = figure_rows(lambda: mains[fig](device="cpu"),
+                                 "--seeds", str(FIG_TWIN_SEEDS))
+        strip = lambda rows: [(r["name"], r["derived"]) for r in rows]
+        check(strip(card) == strip(cpu),
+              f"figures: {fig} at {FIG_TWIN_SEEDS} seed(s), the card's rows "
+              f"{strip(card)} differ from the CPU's {strip(cpu)}")
+        twin[fig] = dict(rows=len(cpu), cpu_s=cpu_s)
+    merit = {r["name"]: {k: r["derived"][k] for k in ("speedup_vs_M1", "linearity")
+                         if k in r["derived"]}
+             for fig in ("fig3", "fig5") for r in figs[fig]["rows"]}
+    return dict(phase="figures", card=card_name_and_power(),
+                protocol=dict(seeds=FIG_SEEDS, fig5_devices=list(f5.DEVICES),
+                              fig5_problem="synthetic_matern_problem(50, 50, seed=repeat)",
+                              fig5_protocol=FIG5_PROTOCOL),
+                figures=figs, launches=launches, episodes=n_episodes,
+                mdmt_episodes=len(mdmt), mdmt_decisions=mdmt_decisions,
+                mdmt_picks=mdmt_picks, wall_s=wall,
+                speedup_and_linearity=merit,
+                cpu_twin=dict(seeds=FIG_TWIN_SEEDS, derived_equal_card=True, **twin))
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (float32 in, the binade's spacing out)."""
+    a = x.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def held_leaf(name, got, want) -> float:
+    """A leaf of the card's AdamW step against the CPU twin's: float32 to
+    TRAIN_TOL_F32 of each value, bf16 to one bf16 ulp; the largest error."""
+    g, w = got.cpu().float(), want.float()
+    diff = (g - w).abs()
+    lim = bf16_ulp(w) if want.dtype == torch.bfloat16 else TRAIN_TOL_F32 * w.abs()
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(g).all()) and bool((diff <= lim).all()),
+          f"train_pieces: {name} differs from the CPU twin by {float(diff.max())}")
+    return float(diff.max())
+
+
+def train_pieces_phase(dev):
+    """One AdamW step and one int8 compression of the gradients on
+    TRAIN_ARCH's full parameter tree on the card, each held against a CPU
+    twin, the step timed beside its bytes bound; then the cost model's
+    analytic step times on one card."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.core import cost_model as cm
+    from repro_torch.models import model_specs
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.train import compress, optimizer as opt
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(spec, std, dtype, square=False):
+        t = torch.empty(spec.shape, dtype=torch.float32, device=dev)
+        t.normal_(0.0, std, generator=gen)
+        return (t.square_() if square else t).to(dtype)
+
+    specs = model_specs(cfg)
+    params = tree_map(lambda s: draw(s, 0.02, torch.bfloat16), specs)
+    grads = tree_map(lambda s: draw(s, TRAIN_GRAD_STD, torch.bfloat16), specs)
+    ocfg = opt.OptConfig(moment_dtype=torch.float32)
+    state = {"mu": tree_map(lambda s: draw(s, 1e-4, torch.float32), specs),
+             "nu": tree_map(lambda s: draw(s, 1e-3, torch.float32, square=True), specs),
+             "step": torch.tensor(TRAIN_STEP, dtype=torch.int32, device=dev)}
+    n = cfg.param_count()
+    check(sum(t.numel() for t in tree_leaves(params)) == n,
+          "train_pieces: the tree's leaves do not add up to param_count")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new_params, new_state, metrics = opt.adamw_update(params, grads, state, ocfg)
+    torch.cuda.synchronize()
+    gnorm, lr = metrics["grad_norm"], metrics["lr"]
+    check(bool(torch.isfinite(gnorm)) and float(gnorm) > ocfg.clip_norm,
+          f"train_pieces: grad norm {float(gnorm)} (the step should clip)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the CPU twin of the first layers, with the card's global norm
+    first = lambda tree: tree_map(lambda a: a[:TRAIN_TWIN_LAYERS].cpu(), tree["blocks"])
+    t0 = time.perf_counter()
+    cpu_p, cpu_state, cpu_met = opt._update(
+        first(params), first(grads),
+        {"mu": first(state["mu"]), "nu": first(state["nu"]), "step": state["step"].cpu()},
+        ocfg, gnorm.cpu())
+    adamw_cpu_s = time.perf_counter() - t0
+    errs = {}
+    for what, got, want in (("params", new_params, cpu_p),
+                            ("mu", new_state["mu"], cpu_state["mu"]),
+                            ("nu", new_state["nu"], cpu_state["nu"])):
+        g_leaves = tree_leaves(first(got))
+        errs[what] = max(held_leaf(f"{what} leaf {i}", g, w) for i, (g, w) in
+                         enumerate(zip(g_leaves, tree_leaves(want))))
+    check(int(new_state["step"]) == int(cpu_state["step"]) == TRAIN_STEP + 1
+          and abs(float(lr) - float(cpu_met["lr"])) <= TRAIN_TOL_F32 * abs(float(lr)),
+          f"train_pieces: step or lr differs from the CPU's: {float(lr)} vs "
+          f"{float(cpu_met['lr'])}")
+    del new_params, new_state
+    torch.cuda.empty_cache()
+    step_ms = cuda_ms(lambda: opt.adamw_update(params, grads, state, ocfg), 3)
+
+    # compression of the same gradients: codes and scales equal to the CPU's
+    errs0 = compress.init_error_state(grads)
+    codes, scales = compress.compress_tree(grads, errs0)[:2]
+    torch.cuda.synchronize()
+    compress_ms = cuda_ms(lambda: compress.compress_tree(grads, errs0), 3)
+    t0 = time.perf_counter()
+    for i, (g, q, sc) in enumerate(zip(tree_leaves(grads), tree_leaves(codes),
+                                       tree_leaves(scales))):
+        g_cpu = g.cpu()
+        cq, cs, _ = compress.quantize_ef(g_cpu, torch.zeros(g_cpu.shape))
+        check(q.dtype == torch.int8 and torch.equal(q.cpu(), cq)
+              and float(sc) == float(cs),
+              f"train_pieces: leaf {i}'s codes or scale differ from the CPU's")
+    compress_cpu_s = time.perf_counter() - t0
+    wire = compress.wire_bytes_saved(grads)
+    n_leaves = len(tree_leaves(grads))
+    del codes, scales, errs0
+
+    # bytes the step must move: read params, grads and both moments, write
+    # params and both moments (global_norm's second read of the grads and
+    # every temporary are the implementation's)
+    p_bytes, g_bytes, m_bytes = 2, 2, 4
+    step_bytes = n * (2 * p_bytes + g_bytes + 4 * m_bytes)
+    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    # compression: read the grads and the error state, write codes and the
+    # new error state
+    compress_bytes = n * (g_bytes + 4 + 1 + 4)
+    model = cm.CostModel()
+    cost = {}
+    for arch in COST_ARCHS:
+        acfg = get_config(arch)
+        cost[arch] = {shape: dict(step_seconds=model.step_seconds(arch, shape, chips=1),
+                                  probe=model._probe(arch, shape) is not None)
+                      for shape in SHAPES if shape_applicable(acfg, shape)}
+    del params, grads, state
+    torch.cuda.empty_cache()
+    return dict(phase="train_pieces", card=card_name_and_power(), arch=TRAIN_ARCH,
+                params=n, param_dtype="bfloat16", grad_dtype="bfloat16",
+                moment_dtype="float32", state_step=TRAIN_STEP,
+                grad_norm=float(gnorm), lr=float(lr), clip_norm=ocfg.clip_norm,
+                peak_memory_gb=peak_gb,
+                adamw_step=dict(ms=step_ms, bytes=step_bytes, bound_ms=step_bound_ms,
+                                bound_by="bytes", ms_over_bound=step_ms / step_bound_ms),
+                cpu_twin=dict(layers=TRAIN_TWIN_LAYERS, tolerance=dict(
+                    float32_rtol=TRAIN_TOL_F32, bfloat16="one bf16 ulp"),
+                    max_abs_err=errs, adamw_cpu_s=adamw_cpu_s),
+                compress=dict(ms=compress_ms, bytes=compress_bytes,
+                              bound_ms=compress_bytes / HBM_BYTES_PER_S * 1e3,
+                              codes_equal_cpu=True, leaves=n_leaves, cpu_s=compress_cpu_s,
+                              wire_bytes_float32_int8=list(wire)),
+                cost_model=dict(chips=1, peak_flops=cm.PEAK_FLOPS, hbm_bw=cm.HBM_BW,
+                                ici_bw=cm.ICI_BW, hbm_per_chip=cm.HBM_PER_CHIP,
+                                mfu_assumption=model.mfu_assumption,
+                                step_seconds=cost),
+                phase_s=time.perf_counter() - t_phase)
+
+
 def sass(library: Path, _build) -> str:
     """The SASS of a built library (``cuobjdump -sass`` from the CUDA
     toolkit)."""
@@ -1868,6 +2156,9 @@ def main() -> int:
         check(rec["launches"]["gp_readout"] > 0, "baselines: no readout launch")
         emit(rec)
 
+    figures = figures_phase(dev, counters)
+    emit(figures)
+
     emit(readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters))
 
     runs, rec = churn_phase(0, dev, ControlPlane, _matern_block_chol,
@@ -1917,6 +2208,7 @@ def main() -> int:
         emit(served[arch])
         del params
         torch.cuda.empty_cache()
+    emit(train_pieces_phase(dev))
     main_launches["flash_attention"] = forward["qwen3-4b"]["launches_per_forward"]
     main_launches["ssd"] = forward["mamba2-1.3b"]["launches_per_forward"]
 
@@ -1948,6 +2240,9 @@ def main() -> int:
     # wrapper's call; the top-k kernel's C launch; the routes
     extra = {name: dict(kernel_ms=head[name]["kernel_ms"]) for name in head}
     extra["eirate_topk"]["c_launch_ms"] = head["eirate_topk"]["c_launch_ms"]
+    # the figures phase's launches (Fig. 2-5 at the full protocol)
+    for name in ("eirate", "gp_readout"):
+        extra[name]["figures_launches"] = figures["launches"][name]
     for name in ("eirate", "eirate_topk", "eirate_classes"):
         # their "operations" floor is FP64: erf or erfc, and exp, in double,
         # as many as the inputs' terms execute
@@ -2016,10 +2311,7 @@ def main() -> int:
         library_ms=head[name].get("library_ms"), shape_of_times=head[name]["case"],
         **extra.get(name, {}))
         for name in sources]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name_and_power(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,8 @@
                    closed and open world, scorers "ops" and "sharded"
   scheduler.py     event-driven MM-GP-EI + round-robin/random baselines
   regret.py        cumulative + instantaneous global-happiness regret
+  cost_model.py    roofline trial-cost estimate c(x) on the H100's peaks
+                   (Remark 1), probe-backed or analytic
 """
 
 from .control_plane import (  # noqa: F401

@@ -17,9 +17,9 @@ matrix is genuinely 2-D — no ``speed_d`` vector factorizes it — which is
 what makes the joint (device, model) assignment a real 2-D problem instead
 of k independent argmaxes over a shared ranking.  For data-plane-backed
 models, :meth:`DeviceClass.from_cost_model` calibrates ``rate`` from any
-object with a ``class_trial_seconds`` method (the reference's roofline
-``CostModel``; the port's own cost model arrives with the data plane)
-instead of the nominal chip ratio.
+object with a ``class_trial_seconds`` method (the roofline
+``repro_torch.core.cost_model.CostModel``, on the H100's peaks) instead of
+the nominal chip ratio.
 
 The port's copy of ``repro.devplane.registry`` (numpy only).
 """

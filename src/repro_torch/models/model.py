@@ -93,6 +93,12 @@ class ModelConfig:
     def param_count(self) -> int:
         return sum(math.prod(s.shape) for s in tree_leaves(model_specs(self)))
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token: all of them in the ported dense and
+        ssm families (moe, which touches top_k of num_experts, is not
+        ported)."""
+        return self.param_count()
+
 
 def _check_ported(cfg: ModelConfig) -> None:
     if (cfg.family not in PORTED_FAMILIES or cfg.moe is not None
