@@ -92,7 +92,8 @@ Run from the root of a checkout on a machine with one CUDA card and
                  the TF32 rate) with the float32 CUDA-core bound beside it
   model_forward  qwen3-4b, then mamba2-1.3b, at full width and depth, random
                  weights from a seed, bf16, B 4 x S 2,048: forward_loss and
-                 forward_logits_last on the card, one flash launch a layer
+                 forward_logits_last on the card on the kernel route
+                 (use_pallas, ssm.use_pallas), one flash launch a layer
                  (36, every one on the wgmma route) or one SSD call a layer
                  (48, every one on the tensor-core route) per forward and no
                  other kernel; the kernel held against
@@ -119,6 +120,31 @@ Run from the root of a checkout on a machine with one CUDA card and
                  to the CPU's leaf for leaf; and the cost model's analytic
                  step seconds (H100 peaks) for qwen3-4b and mamba2-1.3b at
                  each applicable shape on one card
+  train_step     the training launcher (repro_torch.launch.train: the data
+                 pipeline's batches, make_train_step by autograd, AdamW) on
+                 olmo-1b, then mamba2-1.3b, at full width and depth, bf16
+                 compute over float32 parameters and moments, remat full,
+                 B 1 x S 4,096 (train_4k's global batch of 256 cut to 1), 3
+                 steps: synced ms a step (steps 2-3), tokens/s, the losses
+                 (finite), peak memory against the card's, no kernel launch
+                 (the plain route); the plain attention's (or SSD scan's)
+                 forward and backward alone at a layer's shapes, times the
+                 layers, as a share of the step, beside the forward
+                 kernel's time; the kernel route raising under autograd;
+                 then a float32 twin of the first 2 layers at S 256: loss
+                 and every gradient leaf card against CPU (2e-5 of the
+                 leaf's max), remat full against none on the card (bit
+                 equality printed)
+  service        the example's protocol (repro_torch.examples.
+                 multi_tenant_service: a prior from 8 trainings, 12 models,
+                 5 trials, a crash, a restore, the run to its end) with real
+                 smoke trials on the card: each training's wall time and z,
+                 ms a decision, readout launches equal to the decisions that
+                 read the posterior; then its float32 twin, each trial's
+                 duration fixed to the cost model's estimate, twice on the
+                 card (rerun with deterministic algorithms if the two part)
+                 and once on the CPU: equal trial sequences, z within 1e-4;
+                 bf16 z against float32 z recorded
 
 Then a line listing each kernel, the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
@@ -292,6 +318,30 @@ TRAIN_GRAD_STD = 1e-3          # N(0, std) gradients: a global norm of ~36 at
 TRAIN_TOL_F32 = 1e-6           # rtol: the same float32 ops in the same order
                                # (pow may round apart on the two)
 COST_ARCHS = ("qwen3-4b", "mamba2-1.3b")
+
+# train_step: the training launcher (repro_torch.launch.train: the data
+# pipeline's batches -> make_train_step -> AdamW) at full width and depth,
+# bf16 compute, float32 parameters and moments, remat "full", B 1 x S 4,096:
+# train_4k's sequence, its global batch of 256 cut to 1 to fit one card;
+# then a float32 twin of the first TRAIN_TWIN_LAYERS layers at S
+# TRAIN_TWIN_SEQ, card against CPU, and remat "full" against "none" on the card
+TRAIN_STEP_ARCHS = ("olmo-1b", "mamba2-1.3b")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 1, 4096
+TRAIN_CUT = "train_4k's global batch 256 -> 1 (one card); S 4,096 and full depth kept"
+TRAIN_TWIN_SEQ = 256
+# per gradient leaf, max |card - CPU| / max |CPU|, float32 on both (sums in
+# other orders): tests/test_torch_train_step.py's float32 tolerance, where the
+# port's gradients hold to jax.grad's
+TRAIN_GRAD_TOL = 2e-5
+TRAIN_LOSS_RTOL = 1e-6
+
+# service: the example's protocol (repro_torch.examples.multi_tenant_service)
+# on the card; then its float32 twin on the card (twice) and on the CPU, each
+# trial's duration fixed to the cost model's estimate for its arch, so the
+# trial order does not depend on the clock.  z to SERVICE_Z_RTOL: ten AdamW
+# steps pass float32 gradient differences through g / (|g| + eps), which the
+# train step holds to 1e-4 of a leaf's largest value
+SERVICE_Z_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -1329,6 +1379,13 @@ def first_layers(params, n: int):
                                          lambda x: isinstance(x, torch.Tensor))}
 
 
+def kernel_route(cfg):
+    """``cfg`` with the full-sequence forward on the flash and SSD kernels
+    (the configs' default is the plain route, which training takes)."""
+    ssm = cfg.ssm._replace(use_pallas=True) if cfg.ssm is not None else None
+    return dataclasses.replace(cfg, use_pallas=True, ssm=ssm)
+
+
 def model_forward_phase(arch, seed, dev, counters):
     """One model at full width and depth on the card: loss and last logits
     through the kernel path, launches per forward, the kernel on layer 0's
@@ -1344,7 +1401,7 @@ def model_forward_phase(arch, seed, dev, counters):
     from repro_torch.models.ssm import mix_inputs
 
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = kernel_route(get_config(arch))
     kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
     t0 = time.perf_counter()
     params = init_params(cfg, seed, device=dev)
@@ -1838,6 +1895,331 @@ def train_pieces_phase(dev):
                 phase_s=time.perf_counter() - t_phase)
 
 
+def loss_and_grads(params, batch, cfg):
+    """forward_loss and its gradient leaves (sorted key order) at ``params``."""
+    from repro_torch.models import forward_loss
+    from repro_torch.models.spec import tree_leaves, tree_map
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    p = tree_map(lambda t: t.detach().requires_grad_(), params, is_t)
+    leaves = tree_leaves(p, is_t)
+    loss = forward_loss(p, batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def leaf_errs(got, want) -> list[float]:
+    """Each leaf's max |got - want| over max |want| (want on the CPU)."""
+    return [float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def plain_route_ms(cfg, dev) -> dict:
+    """One layer's plain attention (or SSD scan) alone at the step's shapes,
+    bf16: forward, and forward + backward, CUDA-event ms; beside it the
+    flash (or SSD) kernel's forward on the same inputs.  A step of remat
+    "full" runs each layer's forward twice and its backward once."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.ssm import chunked_scan
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        shape, generator=gen, device=dev).to(dtype).requires_grad_()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    if cfg.family == "ssm":
+        H, P, N, Q = cfg.ssm.num_heads, cfg.ssm.headdim, cfg.ssm.d_state, cfg.ssm.chunk
+        x, b, c = randn(B, S, H, P), randn(B, S, N), randn(B, S, N)
+        dt = (torch.rand((B, S, H), generator=gen, device=dev)
+              * (cfg.ssm.dt_max - cfg.ssm.dt_min) + cfg.ssm.dt_min)
+        la = (-np.e * dt).requires_grad_()
+        fwd = lambda: chunked_scan(x, dt, la, b, c, Q)[0]
+        kernel = lambda: ops.ssd_mix(x, dt, la, b, c, chunk=Q)
+    else:
+        a = cfg.attn_cfg
+        q, k, v = (randn(B, S, a.num_heads, a.head_dim),
+                   randn(B, S, a.num_kv_heads, a.head_dim),
+                   randn(B, S, a.num_kv_heads, a.head_dim))
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        fwd = lambda: chunked_attention(q, k, v, a, pos)
+        kernel = lambda: ops.flash_attention(q, k, v, window=a.sliding_window)
+    grad = torch.ones_like(fwd())
+    with torch.no_grad():
+        fwd_ms = cuda_ms(fwd, 3)
+        kernel_ms = cuda_ms(kernel, 3)
+    fwd_bwd_ms = cuda_ms(lambda: fwd().backward(grad), 3)
+    return dict(what="ssd chunked_scan" if cfg.family == "ssm" else "chunked_attention",
+                fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+                per_step_ms=cfg.num_layers * (fwd_ms + fwd_bwd_ms),
+                kernel_forward_ms=kernel_ms)
+
+
+def train_step_phase(arch, dev, counters):
+    """The training launcher at full width and depth on the card (timed
+    step by step, its kernel launches counted: the plain route launches
+    none), the plain attention's or scan's share of a step, the kernel
+    route's guard, and a float32 twin of the first layers, card against CPU
+    and remat "full" against "none"."""
+    import contextlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train_step: float32 matmuls must not take TF32")
+    cfg = get_config(arch)
+    check(cfg.remat == "full" and not cfg.use_pallas
+          and not (cfg.ssm is not None and cfg.ssm.use_pallas)
+          and cfg.compute_dtype == torch.bfloat16 and cfg.param_dtype == torch.float32,
+          f"train_step {arch}: not the plain route, remat full, bf16 over float32")
+    steps = []
+    make = launch.make_train_step
+
+    def timed_steps(cfg_, opt_cfg):
+        step = make(cfg_, opt_cfg)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(met["loss"]),
+                              grad_norm=float(met["grad_norm"]), lr=float(met["lr"])))
+            return state, met
+        return run
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    launch.make_train_step = timed_steps
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            state = launch.main(["--arch", arch, "--full", "--device", str(dev),
+                                 "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                                 "--seq", str(TRAIN_SEQ), "--seed", "0"])
+        torch.cuda.synchronize()
+    finally:
+        launch.make_train_step = make
+    launches = read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(steps) == TRAIN_STEPS and all(np.isfinite(s["loss"]) and s["loss"] > 0
+                                            for s in steps),
+          f"train_step {arch}: steps {steps}")
+    check(sum(launches.values()) == 0,
+          f"train_step {arch}: the plain route launched kernels {launches}")
+    step_ms = float(np.mean([s["ms"] for s in steps[1:]]))
+
+    # the kernel route is forward only: with an input requiring grad it
+    # raises on the card and launches nothing
+    q = torch.zeros((1, 64, 2, 64), device=dev, requires_grad=True)
+    try:
+        ops.flash_attention(q, q.detach(), q.detach())
+        guard = False
+    except RuntimeError as e:
+        guard = "no backward" in str(e)
+    check(guard and sum(read(counters).values()) == 0,
+          f"train_step {arch}: the kernel route ran under autograd")
+
+    plain = plain_route_ms(cfg, dev)
+    plain["share_of_step"] = plain["per_step_ms"] / step_ms
+
+    # float32 twin: the first layers of the trained parameters, one batch
+    # of the pipeline at S TRAIN_TWIN_SEQ
+    twin_cfg = dataclasses.replace(cfg, num_layers=TRAIN_TWIN_LAYERS,
+                                   compute_dtype=torch.float32)
+    twin = first_layers(state.params, TRAIN_TWIN_LAYERS)
+    raw = SyntheticLMStream(DataConfig(seq_len=TRAIN_TWIN_SEQ, global_batch=TRAIN_BATCH,
+                                       seed=0), cfg).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    reset(counters)                    # plain_route_ms timed the kernels
+    card_loss, card_grads = loss_and_grads(twin, {k: v.to(dev) for k, v in batch.items()},
+                                           twin_cfg)
+    none_loss, none_grads = loss_and_grads(
+        twin, {k: v.to(dev) for k, v in batch.items()},
+        dataclasses.replace(twin_cfg, remat="none"))
+    check(sum(read(counters).values()) == 0, f"train_step {arch}: the twin launched kernels")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(tensors_to(twin, "cpu"), batch, twin_cfg)
+    cpu_s = time.perf_counter() - t0
+    errs = leaf_errs(card_grads, cpu_grads)
+    remat_errs = leaf_errs(none_grads, [g.cpu() for g in card_grads])
+    remat_equal = bool(torch.equal(card_loss, none_loss)) and all(
+        torch.equal(a, b) for a, b in zip(card_grads, none_grads))
+    check(abs(float(card_loss) - float(cpu_loss)) <= TRAIN_LOSS_RTOL * abs(float(cpu_loss))
+          and max(errs) <= TRAIN_GRAD_TOL and max(remat_errs) <= TRAIN_GRAD_TOL,
+          f"train_step {arch}: the float32 twin differs: loss {float(card_loss)} vs "
+          f"{float(cpu_loss)}, worst leaf {max(errs)}, remat none vs full {max(remat_errs)}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    rec = dict(phase="train_step", arch=arch, card=card_name_and_power(),
+               params=cfg.param_count(), layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, cut=TRAIN_CUT,
+               compute_dtype="bfloat16", param_dtype="float32", moment_dtype="float32",
+               remat=cfg.remat, route="plain (use_pallas=False)", steps=steps,
+               step_ms=step_ms, step_ms_of="steps 2-3, host clock, synchronized",
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               peak_memory_gb=peak / 1e9, card_memory_gb=total / 1e9,
+               launches=launches, kernel_route_guard_raises=guard,
+               plain_route=plain,
+               cpu_twin=dict(layers=TRAIN_TWIN_LAYERS, seq=TRAIN_TWIN_SEQ, dtype="float32",
+                             tolerance=dict(grad_leaf=TRAIN_GRAD_TOL, loss_rtol=TRAIN_LOSS_RTOL),
+                             loss_card=float(card_loss), loss_cpu=float(cpu_loss),
+                             leaves=len(errs), max_leaf_err=max(errs), cpu_s=cpu_s,
+                             remat_full_vs_none_bit_equal=remat_equal,
+                             remat_full_vs_none_max_leaf_err=max(remat_errs)),
+               phase_s=time.perf_counter() - t_phase)
+    del state, twin, card_grads, none_grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+class FixedClock:
+    """An executor whose trials last a fixed time per arch (the cost model's
+    estimate), so the service's trial order does not hang on the clock."""
+
+    def __init__(self, executor, seconds: dict):
+        self.executor, self.seconds = executor, seconds
+        self.calls: list = []
+
+    def run(self, tenant, arch):
+        z, _ = self.executor.run(tenant, arch)
+        self.calls.append((tenant.tenant_id, arch, z))
+        return z, self.seconds[arch]
+
+
+def service_protocol_f32(device, example, svc_mod):
+    """The example's protocol in float32 on ``device`` with a FixedClock:
+    (prior mu and K, the trials of both services as tuples, the executor's
+    (tenant, arch, z) calls)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cost_model import CostModel
+
+    smoke = svc_mod.get_smoke_config
+    svc_mod.get_smoke_config = lambda a: dataclasses.replace(
+        get_smoke_config(a), compute_dtype=torch.float32)
+    try:
+        chips = example.fleet().slices[0].chips
+        seconds = {a: CostModel().trial_seconds(a, "train_4k",
+                                                steps=example.SVC.steps_per_trial,
+                                                chips=chips, cfg=get_smoke_config(a))
+                   for a in example.ARCHS}
+        ex = FixedClock(svc_mod.RealExecutor(example.SVC, device=device), seconds)
+        (mu, K), first, restored = example.run(ex, device)
+    finally:
+        svc_mod.get_smoke_config = smoke
+    return mu, K, [dataclasses.astuple(t) for t in first.trials + restored.trials], ex.calls
+
+
+def service_phase(dev, counters):
+    """The example's protocol (real trials) on the card, each decision and
+    trial timed and the readout launches counted; then its float32 twin on
+    the card twice and on the CPU, with a fixed clock: equal trial
+    sequences, z to SERVICE_Z_RTOL; bf16 z against float32 z recorded."""
+    from repro_torch.core import service as svc_mod
+    from repro_torch.examples import multi_tenant_service as example
+
+    t_phase = time.perf_counter()
+    decisions, trials = [], []
+    choose, run = svc_mod.AutoMLService._choose, svc_mod.RealExecutor.run
+
+    def timed_choose(self):
+        reads = not self.selected.all()
+        t0 = time.perf_counter()
+        m = choose(self)
+        decisions.append(dict(ms=(time.perf_counter() - t0) * 1e3, reads=reads))
+        return m
+
+    def timed_run(self, tenant, arch):
+        z, wall = run(self, tenant, arch)
+        trials.append(dict(tenant=tenant.tenant_id, arch=arch, z=z, wall_s=wall))
+        return z, wall
+
+    reset(counters)
+    svc_mod.AutoMLService._choose, svc_mod.RealExecutor.run = timed_choose, timed_run
+    try:
+        (mu, _), first, restored = example.run(
+            svc_mod.RealExecutor(example.SVC, device=dev), dev)
+        torch.cuda.synchronize()
+    finally:
+        svc_mod.AutoMLService._choose, svc_mod.RealExecutor.run = choose, run
+    launches = read(counters)
+    reading = sum(d["reads"] for d in decisions)
+    n_prior = len(example.PRIOR_TENANTS) * len(example.ARCHS)
+    service_trials = first.trials + restored.trials
+    check(len(trials) == n_prior + len(service_trials) == n_prior + len(example.ARCHS)
+          * len(example.TENANTS) and all(0.0 < t["z"] <= 1.0 for t in trials),
+          f"service: {len(trials)} trainings, z {[t['z'] for t in trials]}")
+    check(launches["gp_readout"] == reading > 0
+          and sum(launches.values()) == launches["gp_readout"],
+          f"service: launches {launches} for {reading} decisions that read the posterior")
+    reading_ms = [d["ms"] for d in decisions if d["reads"]]
+
+    # the float32 twin: card twice, then the CPU
+    twin_runs = {"card_a": service_protocol_f32(dev, example, svc_mod),
+                 "card_b": service_protocol_f32(dev, example, svc_mod)}
+    bit_equal = twin_runs["card_a"][2] == twin_runs["card_b"][2]
+    deterministic = False
+    if not bit_equal:
+        # two card runs parted: rerun both with deterministic algorithms
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            twin_runs["card_c"] = service_protocol_f32(dev, example, svc_mod)
+            twin_runs["card_d"] = service_protocol_f32(dev, example, svc_mod)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        deterministic = True
+        check(twin_runs["card_c"][2] == twin_runs["card_d"][2],
+              "service: two deterministic card runs of the float32 twin part")
+    card = twin_runs["card_c" if deterministic else "card_a"]
+    t0 = time.perf_counter()
+    cpu = service_protocol_f32("cpu", example, svc_mod)
+    cpu_s = time.perf_counter() - t0
+    key = lambda tr: tr[:6]            # model, tenant, arch, slice, start, end
+    z_err = max(abs(a[6] - b[6]) / abs(b[6]) for a, b in zip(card[2], cpu[2]))
+    prior_err = max(float(np.max(np.abs(card[0] - cpu[0]) / np.abs(cpu[0]))),
+                    float(np.max(np.abs(card[1] - cpu[1]) / np.abs(cpu[1]).max())))
+    check([key(t) for t in card[2]] == [key(t) for t in cpu[2]]
+          and z_err <= SERVICE_Z_RTOL and prior_err <= SERVICE_Z_RTOL,
+          f"service: the float32 twin parts card from CPU: z {z_err}, prior {prior_err}, "
+          f"card {[key(t) for t in card[2]]} cpu {[key(t) for t in cpu[2]]}")
+    # bf16 (the example's run) against float32 (the card twin), on the
+    # prior's trainings, which both make in the same order
+    bf16_z = [t["z"] for t in trials[:n_prior]]
+    f32_z = [c[2] for c in card[3][:n_prior]]
+    return dict(phase="service", card=card_name_and_power(),
+                protocol=dict(archs=example.ARCHS, tenants=len(example.TENANTS),
+                              prior_tenants=len(example.PRIOR_TENANTS),
+                              svc=dataclasses.asdict(example.SVC),
+                              crash_after=example.CRASH_AFTER, models=first.n,
+                              fleet="partition_pod(256, 2, speeds=[1.0, 0.6])"),
+                compute_dtype="bfloat16", prior_mean=[float(v) for v in mu],
+                trainings=trials,
+                trial_wall_s=dict(mean=float(np.mean([t["wall_s"] for t in trials])),
+                                  max=float(np.max([t["wall_s"] for t in trials]))),
+                trials=[dict(model=t.model, tenant=t.tenant, arch=t.arch, slice=t.slice_id,
+                             t_start=t.t_start, t_end=t.t_end, z=t.z) for t in service_trials],
+                decisions=len(decisions), decisions_reading_posterior=reading,
+                # the first decision loads the readout kernel's library
+                decision_ms=dict(first=reading_ms[0],
+                                 median_after_first=float(np.median(reading_ms[1:])),
+                                 mean_after_first=float(np.mean(reading_ms[1:])),
+                                 max_after_first=float(np.max(reading_ms[1:]))),
+                launches=launches,
+                float32_twin=dict(clock="fixed: the cost model's estimate per arch",
+                                  tolerance=dict(z_rtol=SERVICE_Z_RTOL),
+                                  card_runs_bit_equal=bit_equal,
+                                  deterministic_rerun=deterministic,
+                                  trials_equal_cpu=True, max_z_rel_err=z_err,
+                                  prior_max_rel_err=prior_err, cpu_s=cpu_s,
+                                  trials=len(card[2])),
+                bf16_vs_float32_z=dict(of="the prior's 8 trainings, card",
+                                       bf16=bf16_z, float32=f32_z,
+                                       max_rel_diff=max(abs(a - b) / b
+                                                        for a, b in zip(bf16_z, f32_z))),
+                phase_s=time.perf_counter() - t_phase)
+
+
 def sass(library: Path, _build) -> str:
     """The SASS of a built library (``cuobjdump -sass`` from the CUDA
     toolkit)."""
@@ -2209,6 +2591,10 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     emit(train_pieces_phase(dev))
+    for arch in TRAIN_STEP_ARCHS:
+        emit(train_step_phase(arch, dev, all_counters))
+    service = service_phase(dev, all_counters)
+    emit(service)
     main_launches["flash_attention"] = forward["qwen3-4b"]["launches_per_forward"]
     main_launches["ssd"] = forward["mamba2-1.3b"]["launches_per_forward"]
 
@@ -2243,6 +2629,8 @@ def main() -> int:
     # the figures phase's launches (Fig. 2-5 at the full protocol)
     for name in ("eirate", "gp_readout"):
         extra[name]["figures_launches"] = figures["launches"][name]
+    # the service's decisions (the example's protocol on the card)
+    extra["gp_readout"]["service_launches"] = service["launches"]["gp_readout"]
     for name in ("eirate", "eirate_topk", "eirate_classes"):
         # their "operations" floor is FP64: erf or erfc, and exp, in double,
         # as many as the inputs' terms execute

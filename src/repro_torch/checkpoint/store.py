@@ -8,9 +8,12 @@ Layout per step:  <root>/step_<n>/
     manifest.json      keys + shapes/dtypes + user metadata
     arrays.npz         the arrays (key = the flat name, e.g. ``cp/selected``)
 
-A tree is a flat ``dict[str, array]``: the reference flattens a JAX pytree
-into exactly such names, and a flat dict is all the engines pass.  Keys are
-written in sorted order, the reference's flattening order.
+A tree is nested dicts, NamedTuples, lists and tuples of arrays or tensors
+(a ``train.TrainState``), or a flat ``dict[str, array]`` (the engines'
+snapshots).  It is flattened as the reference flattens a JAX pytree: dict
+keys in sorted order, NamedTuple fields and list items in order, each
+leaf's name its path joined with ``"/"`` (``params/embed/table``,
+``opt/step``), so a flat dict keeps its own keys.
 
 Fault-tolerance properties:
   * atomic publish — written to step_<n>.tmp, fsync'd, then renamed, so a
@@ -29,6 +32,9 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch
+
+_SEP = "/"
 
 # Version of the on-disk checkpoint layout (manifest + arrays.npz).  Bump on
 # incompatible changes; ``load_checkpoint``/``load_arrays`` refuse snapshots
@@ -73,12 +79,44 @@ def _read_arrays(path: Path, manifest: dict) -> dict[str, np.ndarray]:
     return arrays
 
 
-def _host(tree: dict) -> dict[str, np.ndarray]:
-    """The flat tree as host arrays, keys in sorted order."""
-    return {k: np.asarray(tree[k]) for k in sorted(tree)}
+def _map_with_path(fn, tree, path: str = ""):
+    """``fn(name, leaf)`` over the leaves of ``tree``, in its structure and
+    the reference's flattening order; ``name`` is the leaf's flat name.
+    ``None`` is an empty subtree."""
+    def sub(key, value):
+        return _map_with_path(fn, value, f"{path}{_SEP}{key}" if path else str(key))
+
+    if isinstance(tree, dict):
+        return {k: sub(k, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(sub(f, v) for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(sub(i, v) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
 
 
-def save_checkpoint(root: str | os.PathLike, step: int, tree: dict,
+def _flatten(tree) -> dict:
+    """``{flat name: leaf}`` in the reference's flattening order."""
+    items: dict = {}
+    _map_with_path(items.__setitem__, tree)
+    return items
+
+
+def _to_host(leaf) -> np.ndarray:
+    """A leaf as a host array (a tensor copied off its device)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _host(tree) -> dict[str, np.ndarray]:
+    """The tree's leaves as host arrays by flat name."""
+    return {k: _to_host(v) for k, v in _flatten(tree).items()}
+
+
+def save_checkpoint(root: str | os.PathLike, step: int, tree,
                     metadata: dict | None = None):
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
@@ -117,18 +155,17 @@ def latest_step(root: str | os.PathLike) -> int | None:
 
 
 def load_checkpoint(root: str | os.PathLike, step: int, like_tree):
-    """Restore the keys of ``like_tree`` (a flat dict, or any iterable of
-    keys) as ``(dict[str, np.ndarray], metadata)``."""
+    """Restore into the structure of ``like_tree``: ``(tree, metadata)``,
+    each leaf the numpy array saved under its flat name."""
     path = Path(root) / f"step_{step:08d}"
     if not path.exists():
         raise FileNotFoundError(f"no checkpoint at {path}")
     manifest = _read_manifest(path)
     data = _read_arrays(path, manifest)
-    keys = sorted(like_tree)
-    missing = [k for k in keys if k not in data]
+    missing = [k for k in _flatten(like_tree) if k not in data]
     if missing:
         raise KeyError(f"checkpoint missing keys: {missing[:5]} ...")
-    return {k: data[k] for k in keys}, manifest["metadata"]
+    return _map_with_path(lambda k, _: data[k], like_tree), manifest["metadata"]
 
 
 def load_arrays(root: str | os.PathLike, step: int):
@@ -155,13 +192,14 @@ class CheckpointManager:
         self._writer_lock = threading.Lock()   # one writer at a time
         self._saved_steps: set[int] = set()
 
-    def save(self, step: int, tree: dict, metadata: dict | None = None,
+    def save(self, step: int, tree, metadata: dict | None = None,
              blocking: bool = True):
         with self._lock:
             if step in self._saved_steps:
                 return
             self._saved_steps.add(step)
-        host_tree = {k: np.array(v) for k, v in _host(tree).items()}  # copy now
+        # a host copy now, in the tree's structure (its flattening order)
+        host_tree = _map_with_path(lambda _, v: np.array(_to_host(v)), tree)
 
         def work():
             with self._writer_lock:

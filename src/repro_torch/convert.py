@@ -125,9 +125,9 @@ def model_params(tree, device=None):
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
-# the reference's knobs that have no meaning in the port: its Pallas switch
-# (device dispatch replaces it), its remat policy and its roofline unroll
-_NOT_PORTED_FIELDS = ("use_pallas", "remat", "unroll_layers", "unroll")
+# the reference's knobs that have no meaning in the port: its lax.scan
+# unrolls (the port's layer stack and SSD scan are Python loops)
+_NOT_PORTED_FIELDS = ("unroll_layers", "unroll")
 
 
 def _torch_dtype(d) -> torch.dtype:
@@ -137,8 +137,9 @@ def _torch_dtype(d) -> torch.dtype:
 def model_config(fields: dict) -> ModelConfig:
     """The port's :class:`ModelConfig` from the fields of a reference
     ``ModelConfig`` (``{f.name: getattr(cfg, f.name)}``): dtypes mapped to
-    torch's, the ``ssm`` NamedTuple to the port's, and the reference's
-    execution knobs that the port does not have dropped."""
+    torch's, the ``ssm`` NamedTuple to the port's, the ``use_pallas``
+    switches and ``remat`` kept, and the reference's ``lax.scan`` unrolls
+    dropped."""
     f = {k: v for k, v in fields.items() if k not in _NOT_PORTED_FIELDS}
     f["compute_dtype"] = _torch_dtype(f.get("compute_dtype", torch.bfloat16))
     f["param_dtype"] = _torch_dtype(f.get("param_dtype", torch.float32))

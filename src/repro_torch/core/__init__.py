@@ -13,6 +13,8 @@
   regret.py        cumulative + instantaneous global-happiness regret
   cost_model.py    roofline trial-cost estimate c(x) on the H100's peaks
                    (Remark 1), probe-backed or analytic
+  service.py       the real-executor AutoML service: trials that train, the
+                   GP on their exp(-val_loss), checkpoint and restore
 """
 
 from .control_plane import (  # noqa: F401
@@ -46,6 +48,14 @@ from .miu import (  # noqa: F401
 )
 from .regret import RegretCurves, final_regret, regret_curves, speedup_to_threshold  # noqa: F401
 from .scheduler import POLICIES, FailureEvent, SimResult, TrialRecord, simulate  # noqa: F401
+from .service import (  # noqa: F401
+    AutoMLService,
+    RealExecutor,
+    ServiceConfig,
+    ServiceTrial,
+    TenantSpec,
+    estimate_prior,
+)
 from .tenancy import (  # noqa: F401
     Problem,
     azure_problem,

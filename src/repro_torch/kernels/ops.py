@@ -3,9 +3,17 @@
 Dispatch goes by the tensors' device and nothing else: a CPU tensor takes
 the plain PyTorch version (``ref``), a CUDA tensor the hand-written kernel,
 which launches or raises -- there is no fallback between them.
+
+The flash attention and SSD kernels have no backward pass: on the card
+they are ``ctypes`` launches that autograd cannot see.  So both entry
+points raise, on either device, when autograd would record them (grad
+mode on and an input that requires grad); training takes the models'
+plain route (``use_pallas=False``), as the reference's does.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import ei_score, flash_attention as _flash, gp_readout as _gp_readout, ref
 from . import ssd as _ssd
@@ -46,9 +54,18 @@ def gp_readout(W, alpha, mu0, k_diag, *, emit_sd=False):
     return _gp_readout.gp_readout(W, alpha, mu0, k_diag, emit_sd=emit_sd)
 
 
+def _forward_only(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward pass, and an input requires "
+            "grad; train on the plain route (use_pallas=False), or call it "
+            "under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """(B, S, Hq, D) causal GQA attention over q (B, S, Hq, D) and k, v
     (B, S, Hkv, D), in q's dtype; ``window`` keeps keys k > q - window."""
+    _forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
@@ -58,6 +75,7 @@ def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
     """The Mamba2 SSD mix y (B, S, H, P) float32, without the D * x term.
     The kernel scans chunks of ``chunk`` steps; the plain version steps the
     recurrence, so ``chunk`` changes only the rounding."""
+    _forward_only("ssd_mix", x, dt, log_a, b, c)
     if x.device.type == "cpu":
         return ref.ssd_ref(x, dt, log_a, b, c)
     return _ssd.ssd_mix(x, dt, log_a, b, c, chunk=chunk)

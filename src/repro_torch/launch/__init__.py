@@ -1,1 +1,2 @@
-"""Launch helpers of the port: the scoring mesh."""
+"""Launch helpers of the port: the scoring mesh and the training launcher
+(``python -m repro_torch.launch.train``)."""

@@ -1,11 +1,14 @@
 """Grouped-query attention: the full-sequence forward, prefill with a KV
 cache, and one decode step.
 
-Counterpart of ``repro.models.attention``.  ``attention_train`` always
-runs the flash attention kernel through ``ops.flash_attention`` (the
-reference's ``use_pallas=True`` branch; on the CPU that is its plain
-version).  Prefill keeps the reference's chunked plain path, because it
-also emits the ring-buffer cache, and decode is one step against that cache.
+Counterpart of ``repro.models.attention``.  ``attention_train`` takes one
+of the reference's two routes by ``AttnConfig.use_pallas``: True runs the
+flash attention kernel through ``ops.flash_attention`` (on the CPU its
+plain version), which has no backward pass and raises under autograd;
+False (the default, and the route training differentiates) runs the
+reference's plain path, ``_gqa_scores_and_mix`` over blocks of
+``q_chunk`` queries.  Prefill always takes the plain path, because it also
+emits the ring-buffer cache, and decode is one step against that cache.
 Optional per-head RMS q/k-norm (Qwen3) and sliding-window masking
 (H2O-Danube3).
 """
@@ -33,6 +36,7 @@ class AttnConfig(NamedTuple):
     rope_theta: float = 10000.0
     q_chunk: int = 512
     causal: bool = True
+    use_pallas: bool = False
     logits_fp32: bool = True
 
 
@@ -94,11 +98,27 @@ def _gqa_scores_and_mix(q_blk, k, v, cfg: AttnConfig, q_pos, k_pos):
     return out.reshape(B, Qb, H, D)
 
 
+def chunked_attention(q, k, v, cfg: AttnConfig, positions: torch.Tensor):
+    """The plain path: (B, S, H, D) attention, ``q_chunk`` query rows at a
+    time against every key, so no (S, S) score matrix is materialised."""
+    S = q.shape[1]
+    Qb = min(cfg.q_chunk, S)
+    if S % Qb:
+        Qb = S              # irregular length: single query block
+    return torch.cat([_gqa_scores_and_mix(q[:, i:i + Qb], k, v, cfg,
+                                          positions[i:i + Qb], positions)
+                      for i in range(0, S, Qb)], dim=1)
+
+
 def attention_train(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: AttnConfig) -> torch.Tensor:
-    """Full-sequence self-attention through the flash attention kernel."""
+    """Full-sequence self-attention: through the flash attention kernel
+    with ``cfg.use_pallas``, else the chunked plain path."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    if cfg.use_pallas:
+        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    else:
+        out = chunked_attention(q, k, v, cfg, positions)
     return _out_proj(out, p["wo"])
 
 
@@ -109,15 +129,9 @@ def attention_train_with_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     The cache is laid out ring-buffer style (position p at slot p % size)
     so that ``attention_decode`` writes continue seamlessly; with a sliding
     window, size == window and only the last window of keys is kept."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    Qb = min(cfg.q_chunk, S)
-    if S % Qb:
-        Qb = S              # irregular length: single query block
-    out = torch.cat([_gqa_scores_and_mix(q[:, i:i + Qb], k, v, cfg,
-                                         positions[i:i + Qb], positions)
-                     for i in range(0, S, Qb)], dim=1)
-    y = _out_proj(out, p["wo"])
+    y = _out_proj(chunked_attention(q, k, v, cfg, positions), p["wo"])
 
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     if S >= size:

@@ -1,4 +1,4 @@
-"""The decoder-LM backbone of the data plane's inference path.
+"""The decoder-LM backbone of the data plane: training, scoring and serving.
 
 Counterpart of ``repro.models.model`` for the families ported so far:
 
@@ -6,23 +6,35 @@ Counterpart of ``repro.models.model`` for the families ported so far:
   ssm     (mamba2-1.3b)                             Mamba2 SSD blocks
 
 ``moe``, ``hybrid``, ``vlm`` and ``audio`` raise ``NotImplementedError``:
-they wait for the data plane's next slice, with training.  Parameters are
-the reference's tree, nested dicts of tensors with its key paths, every
-block's leaves stacked on a leading layer axis; the layer stack is a
-Python loop over that axis (the reference's ``lax.scan``).  The forward is
-inference only: no autograd graph is built from freshly initialised
-parameters.  The full-sequence forward (``forward_logits_last``,
-``forward_loss``) runs the flash attention and SSD kernels; ``prefill`` and
-``decode_step`` run the plain paths that build and use the decode cache.
+they wait for the data plane's next slice.  Parameters are the reference's
+tree, nested dicts of tensors with its key paths, every block's leaves
+stacked on a leading layer axis; the layer stack is a Python loop over
+that axis (the reference's ``lax.scan``).
+
+The full-sequence forward (``forward_logits_last``, ``forward_loss``)
+takes the reference's two routes: with ``use_pallas`` (and, for the SSD
+block, ``ssm.use_pallas``) the flash attention and SSD kernels, which are
+forward only; by default the plain route, which autograd differentiates
+(``train.make_train_step``).  Each block runs under the reference's remat
+policy (``remat``: ``"full"`` recomputes the block in the backward pass,
+``"dots"`` keeps the matmul outputs, ``"none"`` keeps everything).
+``prefill`` and ``decode_step`` run the plain paths that build and use the
+decode cache.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve
 from . import attention as attn_lib
@@ -76,8 +88,12 @@ class ModelConfig:
     # execution
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
+    remat: str = "full"           # none | full | dots
     q_chunk: int = 512
     xent_chunk: int = 512
+    # the flash attention kernel (forward only); the SSD block has its own
+    # switch, ``ssm.use_pallas``, as in the reference
+    use_pallas: bool = False
     attn_logits_fp32: bool = True
     supports_long_context: bool = False
 
@@ -88,7 +104,7 @@ class ModelConfig:
             num_kv_heads=self.num_kv_heads, head_dim=self.head_dim,
             qk_norm=self.qk_norm, sliding_window=self.sliding_window,
             rope_theta=self.rope_theta, q_chunk=self.q_chunk,
-            logits_fp32=self.attn_logits_fp32)
+            use_pallas=self.use_pallas, logits_fp32=self.attn_logits_fp32)
 
     def param_count(self) -> int:
         return sum(math.prod(s.shape) for s in tree_leaves(model_specs(self)))
@@ -171,9 +187,15 @@ def _is_tensor(x) -> bool:
 
 
 def _layers(stacked):
-    """The per-layer subtrees of a tree stacked on a leading layer axis."""
+    """The per-layer subtrees of a tree stacked on a leading layer axis.
+
+    Each leaf is split by ``unbind``, whose backward stacks the layers'
+    gradients once, where indexing layer by layer would add a full-size
+    zero-padded gradient per layer."""
     n = tree_leaves(stacked, _is_tensor)[0].shape[0]
-    return [tree_map(lambda a, i=i: a[i], stacked, _is_tensor) for i in range(n)]
+    parts = tree_map(lambda a: a.unbind(0), stacked, _is_tensor)
+    is_parts = lambda x: isinstance(x, tuple) and len(x) == n and _is_tensor(x[0])
+    return [tree_map(lambda t, i=i: t[i], parts, is_parts) for i in range(n)]
 
 
 def _stack(trees: list[dict]) -> dict:
@@ -196,13 +218,42 @@ def _ssm_block(p, x, cfg: ModelConfig):
     return x + ssm_lib.ssm_train(p["ssm"], h, cfg.ssm)
 
 
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """jax.checkpoint_policies.dots_saveable: keep the matmul outputs,
+    recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat policy (the reference's ``_remat``).
+    The blocks draw no random numbers, so no RNG state is stashed."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_matmuls))
+    raise ValueError(cfg.remat)
+
+
 def _apply_blocks_train(params, x, positions, cfg: ModelConfig):
-    """The stacked blocks, layer by layer, over the whole sequence."""
+    """The stacked blocks, layer by layer, over the whole sequence, each
+    block under the remat policy."""
+    if cfg.family == "ssm":
+        block = _remat(lambda p, h: _ssm_block(p, h, cfg), cfg)
+    else:
+        block = _remat(lambda p, h: _transformer_block(p, h, positions, cfg), cfg)
     for layer_p in _layers(params["blocks"]):
-        if cfg.family == "ssm":
-            x = _ssm_block(layer_p, x, cfg)
-        else:
-            x = _transformer_block(layer_p, x, positions, cfg)
+        x = block(layer_p, x)
     return x
 
 

@@ -5,11 +5,15 @@ Counterpart of ``repro.models.ssm``:
   per step t:  h_t = a_t * h_{t-1} + dt_t * B_t (x) x_t      a_t = exp(dt_t * A)
                y_t = C_t . h_t + D * x_t
 
-``ssm_train`` runs the SSD chunk-scan kernel through ``ops.ssd_mix`` (on
-the CPU its plain version, the per-step recurrence).  The kernel returns no
-final state, so the prefill path ``ssm_train_with_state`` keeps the
-reference's chunked plain scan, which carries the (B, H, P, N) state across
-chunks; decode is the O(1) recurrence.
+``ssm_train`` takes one of the reference's two routes by
+``SSMConfig.use_pallas`` (the block's own switch, as in the reference):
+True runs the SSD chunk-scan kernel through ``ops.ssd_mix`` (on the CPU
+its plain version, the per-step recurrence), which has no backward pass
+and raises under autograd; False (the default, and the route training
+differentiates) runs the reference's chunked plain scan, which carries the
+(B, H, P, N) state across chunks.  The prefill path
+``ssm_train_with_state`` always takes the plain scan, since the kernel
+returns no final state; decode is the O(1) recurrence.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ class SSMConfig(NamedTuple):
     chunk: int = 256
     dt_min: float = 0.001
     dt_max: float = 0.1
+    use_pallas: bool = False
 
     @property
     def num_heads(self) -> int:
@@ -100,7 +105,8 @@ def _dt_and_log_a(p: dict, dt_raw: torch.Tensor, cfg: SSMConfig):
 
 
 def ssm_train(p: dict, u: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
-    """Full-sequence SSD through the chunk-scan kernel. u (B, S, d_model)."""
+    """Full-sequence SSD, u (B, S, d_model): through the chunk-scan kernel
+    with ``cfg.use_pallas``, else the chunked plain scan."""
     y, _ = _ssm_forward(p, u, cfg)
     return y
 
@@ -129,22 +135,20 @@ def mix_inputs(p: dict, u: torch.Tensor, cfg: SSMConfig):
     return (xh, dt, log_a, Bmat, Cmat, Q), (z, xbc_raw)
 
 
-def _ssm_forward(p: dict, u: torch.Tensor, cfg: SSMConfig, want_state: bool = False):
-    B, S, _ = u.shape
-    H, P, N = cfg.num_heads, cfg.headdim, cfg.d_state
-    (xh, dt, log_a, Bmat, Cmat, Q), (z, xbc_raw) = mix_inputs(p, u, cfg)
-
-    if not want_state:
-        y = ops.ssd_mix(xh, dt, log_a, Bmat, Cmat, chunk=Q)
-        return _ssm_epilogue(p, u, y, xh, z, cfg), None
-
+def chunked_scan(xh, dt, log_a, Bmat, Cmat, Q: int):
+    """The plain route's SSD mix: the reference's chunked scan over
+    (B, S, H, P) ``xh`` in chunks of ``Q`` steps, carrying the (B, H, P, N)
+    state across chunks.  Returns (y (B, S, H, P) float32, without the D * x
+    term; the final state)."""
+    B, S, H, P = xh.shape
+    N = Bmat.shape[-1]
     nc = S // Q
 
     def chunks(t):
         return t.reshape(B, nc, Q, *t.shape[2:]).transpose(0, 1)  # (nc, B, Q, ...)
 
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
-    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=u.device)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
     ys = []
     for xq, bq, cq, dtq, laq in zip(chunks(xh), chunks(Bmat), chunks(Cmat),
                                     chunks(dt), chunks(log_a)):
@@ -164,8 +168,21 @@ def _ssm_forward(p: dict, u: torch.Tensor, cfg: SSMConfig, want_state: bool = Fa
         bx = torch.einsum("bqh,bqn,bqhp->bhpn", w_state, bq.float(), xq.float())
         state = torch.exp(l_end)[:, :, None, None] * state + bx
         ys.append(y_intra.float() + y_inter)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
+    return torch.stack(ys, dim=1).reshape(B, S, H, P), state
+
+
+def _ssm_forward(p: dict, u: torch.Tensor, cfg: SSMConfig, want_state: bool = False):
+    S = u.shape[1]
+    (xh, dt, log_a, Bmat, Cmat, Q), (z, xbc_raw) = mix_inputs(p, u, cfg)
+
+    if cfg.use_pallas and not want_state:
+        y = ops.ssd_mix(xh, dt, log_a, Bmat, Cmat, chunk=Q)
+        return _ssm_epilogue(p, u, y, xh, z, cfg), None
+
+    y, state = chunked_scan(xh, dt, log_a, Bmat, Cmat, Q)
     out = _ssm_epilogue(p, u, y, xh, z, cfg)
+    if not want_state:
+        return out, None
     cache = {
         "state": state,
         "conv": xbc_raw[:, S - (cfg.conv_width - 1):, :],

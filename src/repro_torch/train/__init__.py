@@ -1,5 +1,6 @@
-"""The trial executor's training pieces: AdamW with clipping and a
-warmup-cosine schedule, and int8 error-feedback gradient compression."""
+"""The trial executor's training: the train step (autograd through the
+models' plain route), AdamW with clipping and a warmup-cosine schedule,
+and int8 error-feedback gradient compression."""
 
 from .compress import (  # noqa: F401
     compress_tree,
@@ -18,3 +19,4 @@ from .optimizer import (  # noqa: F401
     global_norm,
     lr_at,
 )
+from .train_step import TrainState, make_train_step, train_state_specs  # noqa: F401

@@ -699,7 +699,10 @@ def test_smoke_forward_on_card_equals_cpu(cuda, arch, dtype):
     """The smoke config: the card's forward (flash or SSD kernel in every
     layer, on the dtype's route) gives the CPU's last logits (plain
     versions): 2e-4 in float32; in bf16 (the config's own dtype), 5e-2."""
-    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    smoke = get_smoke_config(arch)
+    cfg = dataclasses.replace(
+        smoke, compute_dtype=dtype, use_pallas=True,
+        ssm=smoke.ssm._replace(use_pallas=True) if smoke.ssm is not None else None)
     params = init_params(cfg, 0, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 96)).astype(np.int32))
@@ -729,3 +732,85 @@ def test_engine_on_card_equals_cpu(cuda):
                                max_new_tokens=5))
         out[dev] = [r.output for r in eng.run()]
     assert out["cuda"] == out["cpu"]
+
+
+def test_kernel_route_raises_under_autograd_on_card(cuda):
+    """The flash and SSD kernels have no backward pass: with an input that
+    requires grad they raise on the card (as on the CPU) and launch
+    nothing; under no_grad they launch."""
+    q = torch.zeros((1, 64, 2, 64), device=cuda, requires_grad=True)
+    x = torch.zeros((1, 64, 2, 64), device=cuda, requires_grad=True)
+    dt = torch.zeros((1, 64, 2), device=cuda)
+    bc = torch.zeros((1, 64, 16), device=cuda)
+    f0, s0 = flash_mod.launches, ssd_mod.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_mix(x, dt, dt, bc, bc)
+    assert (flash_mod.launches, ssd_mod.launches) == (f0, s0)
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)
+        ops.ssd_mix(x, dt, dt, bc, bc)
+    assert (flash_mod.launches, ssd_mod.launches) == (f0 + 1, s0 + 1)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """Three float32 train steps of the smoke config (the plain route, no
+    kernel launch) on the card and on the CPU: losses to rtol 1e-5, every
+    parameter within 2e-2 of the learning rates summed over the steps (an
+    element's AdamW step is at most about lr, and g / (|g| + eps) passes a
+    gradient's float32 error on where |g| is near eps), as the CPU tests
+    hold the port's steps to the reference's."""
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.train import OptConfig, TrainState, adamw_init, make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=torch.float32)
+    opt_cfg = OptConfig(lr=5e-3, warmup_steps=2, total_steps=10)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+                for k in ("tokens", "labels")} for _ in range(3)]
+    out = {}
+    f0, s0 = flash_mod.launches, ssd_mod.launches
+    for dev in ("cpu", cuda):
+        params = _to(init_params(cfg, 0, device="cpu"), dev)
+        state = TrainState(params, adamw_init(params, opt_cfg))
+        step = make_train_step(cfg, opt_cfg)
+        losses, lr_sum = [], 0.0
+        for b in batches:
+            state, met = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(met["loss"]))
+            lr_sum += float(met["lr"])
+        out[str(dev)] = (losses, tree_leaves(_to(state.params, "cpu"),
+                                             lambda x: isinstance(x, torch.Tensor)))
+    assert (flash_mod.launches, ssd_mod.launches) == (f0, s0)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - w).abs().max()) <= 2e-2 * lr_sum
+
+
+def test_service_decisions_on_card_equal_cpu(cuda):
+    """The service's decisions on the card (the readout kernel, once a
+    decision) take the CPU's trials, for every policy."""
+    from repro_torch.core.fleet import Fleet
+    from repro_torch.core.service import AutoMLService, ServiceConfig, TenantSpec
+
+    archs = ["olmo-1b", "qwen3-4b", "mamba2-1.3b"]
+
+    class Table:
+        def run(self, tenant, arch):
+            return 0.3 + 0.1 * ((tenant.tenant_id + archs.index(arch)) % 3), 1.0
+
+    for policy in ("mdmt", "round_robin", "random"):
+        runs = {}
+        for dev in ("cpu", cuda):
+            svc = AutoMLService([TenantSpec(i, i, 1.2) for i in range(3)], archs,
+                                Fleet.partition_pod(256, 2), Table(),
+                                ServiceConfig(policy=policy), device=dev)
+            before = gp_readout.launches
+            svc.run()
+            runs[str(dev)] = [dataclasses.astuple(t) for t in svc.trials]
+            if str(dev) == "cuda":
+                assert gp_readout.launches - before == len(svc.trials)
+        assert runs["cuda"] == runs["cpu"]

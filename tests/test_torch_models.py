@@ -525,11 +525,18 @@ def test_bf16_decode_drift_matches_reference_at_depth(arch, layers):
 
 # --- the port on its own: decode after prefill == the kernel-path forward ------
 
+def _kernel_route(cfg):
+    """``cfg`` with the forward on the flash and SSD kernels."""
+    ssm = cfg.ssm._replace(use_pallas=True) if cfg.ssm is not None else None
+    return dataclasses.replace(cfg, use_pallas=True, ssm=ssm)
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_decode_matches_full_forward(arch):
     """decode(prefill(x[:S-1]), x[S-1]) logits == full forward logits at S
-    (``test_models.py``'s case, in the configs' own bfloat16)."""
-    cfg = get_smoke_config(arch)
+    (``test_models.py``'s case, in the configs' own bfloat16), the forward
+    on the kernel route."""
+    cfg = _kernel_route(get_smoke_config(arch))
     params = init_params(cfg, 1, device="cpu")
     tokens, _ = _tokens(cfg, 2, 48)
     full = torch.from_numpy(tokens)
@@ -542,7 +549,7 @@ def test_prefill_decode_matches_full_forward(arch):
 def test_sliding_window_ring_buffer_decode():
     """With a sliding window, decoding past the window through the ring
     buffer matches the full forward (``test_models.py``'s case)."""
-    cfg = get_smoke_config("h2o-danube-3-4b")            # window 64
+    cfg = _kernel_route(get_smoke_config("h2o-danube-3-4b"))   # window 64
     params = init_params(cfg, 2, device="cpu")
     tokens, _ = _tokens(cfg, 1, 96)                      # > window
     full = torch.from_numpy(tokens)
@@ -635,8 +642,8 @@ def test_model_config_maps_the_reference_fields():
     tcfg = convert.model_config(_fields(jcfg))
     assert isinstance(tcfg, ModelConfig)
     assert tcfg.compute_dtype == torch.bfloat16 and tcfg.param_dtype == torch.float32
-    assert tcfg.ssm == get_smoke_config("mamba2-1.3b").ssm
-    assert not hasattr(tcfg, "use_pallas") and not hasattr(tcfg.ssm, "use_pallas")
+    assert tcfg.ssm == get_smoke_config("mamba2-1.3b").ssm._replace(use_pallas=True)
+    assert tcfg.use_pallas and tcfg.ssm.use_pallas and tcfg.remat == jcfg.remat
     cache = jmodel.init_cache(jcfg, 2, 16)
     tcache = convert.model_params(jax.tree.map(np.asarray, cache), "cpu")
     assert tcache["ssm"]["conv"].dtype == torch.bfloat16

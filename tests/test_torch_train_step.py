@@ -1,0 +1,356 @@
+"""Training on the port against the reference, on the CPU: the models'
+gradients, the train step, remat, the kernel route's guard, checkpoint
+names and the training launcher.
+
+The reference's parameters (``jax.random``) are carried across with
+``convert.model_params``, and the batches are made with numpy from a seed,
+so both packages differentiate the same function at the same point.
+Tolerances, each held per gradient leaf as max |got - want| / max |want|:
+
+- float32: 2e-5 (the worst leaf of the five smoke configs is 2e-6: sums in
+  another order, through the chunked attention and the SSD scan);
+- bfloat16, the configs' own dtype: 5e-2 (``test_torch_models.py``'s
+  bf16 tolerance; the worst leaf is 3e-2, where the two frameworks round
+  intermediate products at other places);
+- the loss: rtol 1e-6 in float32, 5e-4 in bf16;
+- three train steps: loss, grad norm and lr rtol 2e-5; every parameter
+  within 2e-2 of the learning rates summed over the steps (an element's
+  AdamW step is at most about lr).  Most elements agree to float32
+  rounding; the worst are those whose gradient is near AdamW's eps (1e-8),
+  where the step lr g / (|g| + eps) turns a gradient's float32 error into
+  up to ~1% of lr (2.4e-5 after a first step of lr 2.5e-3).
+"""
+
+import dataclasses
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch.utils._python_dispatch  # noqa: E402
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.checkpoint import store as jstore  # noqa: E402
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.launch import train as j_launch  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.sharding.rules import ParamSpec as JParamSpec  # noqa: E402
+from repro.train import optimizer as j_opt  # noqa: E402
+from repro.train import train_step as j_ts  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import store as tstore  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import train as t_launch  # noqa: E402
+from repro_torch.models import forward_loss, init_params  # noqa: E402
+from repro_torch.models.spec import ParamSpec, tree_leaves, tree_map  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    OptConfig,
+    TrainState,
+    adamw_init,
+    make_train_step,
+    train_state_specs,
+)
+
+GRAD_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+LOSS_RTOL = {"float32": 1e-6, "bfloat16": 5e-4}
+METRIC_RTOL = 2e-5
+STEP_TOL_OF_LR = 2e-2
+JDTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two torch threads: the suite runs several test files at once on the
+    CPU's cores, where more threads a process only oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _is_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _twins(arch: str, dtype: str, seed: int = 0):
+    """(reference cfg, params) and (port cfg, the same params as tensors),
+    both on the plain route (the configs' default)."""
+    jcfg = dataclasses.replace(j_smoke(arch), compute_dtype=JDTYPES[dtype])
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
+    tcfg = convert.model_config(_fields(jcfg))
+    assert not tcfg.use_pallas and not (tcfg.ssm and tcfg.ssm.use_pallas)
+    tparams = convert.model_params(jax.tree.map(np.asarray, jparams), "cpu")
+    return (jcfg, jparams), (tcfg, tparams)
+
+
+def _batch(cfg, B: int, S: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels[0, :5] = -1                                   # masked positions
+    return ({"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
+            {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)})
+
+
+def _seq_len(arch: str) -> int:
+    # past h2o-danube's smoke window (64), so the window masks
+    return 96 if arch == "h2o-danube-3-4b" else 64
+
+
+def _loss_and_grads(params, batch, cfg):
+    """The port's loss and gradient leaves (sorted key order, the
+    reference's ``jax.tree.leaves`` order)."""
+    p = tree_map(lambda t: t.detach().requires_grad_(), params, _is_tensor)
+    leaves = tree_leaves(p, _is_tensor)
+    loss = forward_loss(p, batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _leaf_err(got, want) -> float:
+    g, w = _f32(got), _f32(want)
+    assert g.shape == w.shape
+    return float(np.abs(g - w).max() / max(np.abs(w).max(), np.finfo(np.float32).tiny))
+
+
+# --- gradients against jax.value_and_grad ------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_loss_and_grads_match_reference(arch, dtype):
+    (jcfg, jparams), (tcfg, tparams) = _twins(arch, dtype)
+    jbatch, tbatch = _batch(tcfg, 2, _seq_len(arch))
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.forward_loss(p, jbatch, jcfg, None)))(jparams)
+    loss, grads = _loss_and_grads(tparams, tbatch, tcfg)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL[dtype])
+    want_leaves = jax.tree.leaves(want_grads)
+    assert len(grads) == len(want_leaves)
+    for g, p in zip(grads, tree_leaves(tparams, _is_tensor)):
+        assert g.dtype == p.dtype and g.shape == p.shape
+    errs = [_leaf_err(g, w) for g, w in zip(grads, want_leaves)]
+    assert max(errs) <= GRAD_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b"])
+def test_three_train_steps_match_reference(arch):
+    (jcfg, jparams), (tcfg, tparams) = _twins(arch, "float32", seed=2)
+    jopt_cfg = j_opt.OptConfig(lr=5e-3, warmup_steps=2, total_steps=10)
+    topt_cfg = OptConfig(lr=5e-3, warmup_steps=2, total_steps=10)
+    jstate = j_ts.TrainState(jparams, j_opt.adamw_init(jparams, jopt_cfg))
+    tstate = TrainState(tparams, adamw_init(tparams, topt_cfg))
+    jstep = jax.jit(j_ts.make_train_step(jcfg, jopt_cfg, None))
+    tstep = make_train_step(tcfg, topt_cfg)
+    lr_sum = 0.0
+    for s in range(3):
+        jbatch, tbatch = _batch(tcfg, 2, 32, seed=s)
+        given = tstate
+        snapshot = tree_map(torch.clone, given, _is_tensor)
+        jstate, jmet = jstep(jstate, jbatch)
+        tstate, tmet = tstep(given, tbatch)
+        # the step does not modify the state it was given
+        for a, b in zip(tree_leaves(given, _is_tensor), tree_leaves(snapshot, _is_tensor)):
+            assert torch.equal(a, b)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=METRIC_RTOL)
+        lr_sum += float(jmet["lr"])
+        got = tree_leaves(tstate.params, _is_tensor)
+        want = jax.tree.leaves(jstate.params)
+        errs = [float(np.abs(_f32(g) - _f32(w)).max()) for g, w in zip(got, want)]
+        assert max(errs) <= STEP_TOL_OF_LR * lr_sum, (s, lr_sum, errs)
+        assert not any(t.requires_grad for t in tree_leaves(tstate, _is_tensor))
+        assert int(tstate.opt["step"]) == int(jstate.opt["step"]) == s + 1
+
+
+def test_smoke_train_step_improves_loss():
+    """``test_models.py``'s case on the port's families: eight steps on one
+    batch lower the loss."""
+    for arch in ("qwen3-4b", "mamba2-1.3b"):
+        cfg = get_smoke_config(arch)
+        opt_cfg = OptConfig(lr=5e-3, warmup_steps=1, total_steps=20, weight_decay=0.0)
+        params = init_params(cfg, 0, device="cpu")
+        state = TrainState(params=params, opt=adamw_init(params, opt_cfg))
+        step = make_train_step(cfg, opt_cfg)
+        _, batch = _batch(cfg, 4, 32)
+        losses = []
+        for _ in range(8):
+            state, metrics = step(state, batch)   # overfit one batch
+            losses.append(float(metrics["loss"]))
+            assert np.isfinite(losses[-1])
+        assert losses[-1] < losses[0], (arch, losses)
+
+
+def test_rules_are_not_ported():
+    cfg = get_smoke_config("olmo-1b")
+    with pytest.raises(NotImplementedError, match="rules"):
+        make_train_step(cfg, OptConfig(), rules=object())
+
+
+# --- remat -----------------------------------------------------------------------------
+
+class _CountMatmuls(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                    torch.ops.aten.addmm.default):
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-1.3b"])
+def test_remat_policies_give_equal_gradients(arch):
+    """"none", "full" and "dots" differentiate the same function: bit-equal
+    loss and gradients on the CPU.  In the backward pass "full" recomputes
+    every block's matmuls, "dots" (matmul outputs kept) none of them, as
+    "none"; any other policy raises, as the reference's does."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=torch.float32)
+    params = init_params(cfg, 1, device="cpu")
+    _, batch = _batch(cfg, 2, 64, seed=1)
+    out, backward_mm = {}, {}
+    for remat in ("none", "full", "dots"):
+        c = dataclasses.replace(cfg, remat=remat)
+        p = tree_map(lambda t: t.detach().requires_grad_(), params, _is_tensor)
+        leaves = tree_leaves(p, _is_tensor)
+        loss = forward_loss(p, batch, c)
+        with _CountMatmuls() as mode:
+            grads = torch.autograd.grad(loss, leaves)
+        out[remat], backward_mm[remat] = (loss.detach(), grads), mode.count
+    for remat in ("full", "dots"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out["none"][1]))
+    assert backward_mm["dots"] == backward_mm["none"] < backward_mm["full"]
+    with pytest.raises(ValueError, match="some"):
+        forward_loss(params, batch, dataclasses.replace(cfg, remat="some"))
+
+
+# --- the kernel route is forward only ------------------------------------------------
+
+def test_kernel_route_raises_under_autograd():
+    """With ``use_pallas`` the forward reaches the flash and SSD entry
+    points, which raise on the CPU (as on the card) once an input requires
+    grad; under no_grad, or with no input requiring grad, they run."""
+    for arch in ("qwen3-4b", "mamba2-1.3b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=torch.float32)
+        kernel = dataclasses.replace(
+            cfg, use_pallas=True,
+            ssm=cfg.ssm._replace(use_pallas=True) if cfg.ssm else None)
+        params = init_params(cfg, 0, device="cpu")
+        _, batch = _batch(cfg, 1, 32)
+        name = "ssd_mix" if cfg.family == "ssm" else "flash_attention"
+        with pytest.raises(RuntimeError, match=f"{name}: the kernel has no backward"):
+            _loss_and_grads(params, batch, kernel)
+        with torch.no_grad():
+            want = forward_loss(params, batch, cfg)
+            got = forward_loss(tree_map(lambda t: t.detach().requires_grad_(), params,
+                                        _is_tensor), batch, kernel)
+        np.testing.assert_allclose(float(got), float(want), rtol=2e-4)
+    q = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    x = torch.zeros((1, 8, 2, 4), requires_grad=True)
+    dt = torch.zeros((1, 8, 2))
+    bc = torch.zeros((1, 8, 4))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_mix(x, dt, dt, bc, bc)
+    assert ops.ssd_mix(x.detach(), dt, dt, bc, bc).shape == (1, 8, 2, 4)
+
+
+# --- specs and checkpoint names --------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_state_specs_match_reference(arch):
+    got = train_state_specs(get_smoke_config(arch), OptConfig())
+    want = j_ts.train_state_specs(j_smoke(arch), j_opt.OptConfig())
+    assert isinstance(got, TrainState) and got._fields == want._fields
+    g = tree_leaves(got)
+    w = jax.tree.leaves(want, is_leaf=lambda x: isinstance(x, JParamSpec))
+    assert all(isinstance(s, ParamSpec) for s in g)
+    assert [(s.shape, s.logical_axes, s.init) for s in g] == \
+           [(s.shape, s.logical_axes, s.init) for s in w]
+    assert [str(s.dtype).split(".")[-1] for s in g] == [jnp.dtype(s.dtype).name for s in w]
+
+
+def test_checkpoint_names_match_reference(tmp_path):
+    """A ``TrainState`` flattens to the reference's names, in its order;
+    the two packages write the same bytes and each restores the other's
+    snapshot into its own structure; the store takes lists too."""
+    (_, jparams), (tcfg, tparams) = _twins("mamba2-1.3b", "float32")
+    jstate = j_ts.TrainState(jparams, j_opt.adamw_init(jparams, j_opt.OptConfig()))
+    tstate = TrainState(tparams, adamw_init(tparams, OptConfig()))
+    want, _ = jstore._flatten(jstate)
+    got = tstore._flatten(tstate)
+    assert list(got) == list(want)
+    assert "params/blocks/ssm/in_proj_zx" in got and "opt/step" in got
+    tstore.save_checkpoint(tmp_path / "t", 3, tstate, {"arch": tcfg.name})
+    jstore.save_checkpoint(tmp_path / "j", 3, jstate, {"arch": tcfg.name})
+    for f in ("manifest.json", "arrays.npz"):
+        assert (tmp_path / "t/step_00000003" / f).read_bytes() == \
+               (tmp_path / "j/step_00000003" / f).read_bytes()
+    tree, meta = tstore.load_checkpoint(tmp_path / "j", 3, tstate)
+    assert isinstance(tree, TrainState) and meta == {"arch": tcfg.name}
+    for a, b in zip(tree_leaves(tree), jax.tree.leaves(jstate)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    jtree, _ = jstore.load_checkpoint(tmp_path / "t", 3, jstate)
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(jstate)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    nested = {"w": [torch.ones(2), (np.zeros(3), None)], "s": np.int32(4)}
+    assert list(tstore._flatten(nested)) == ["s", "w/0", "w/1/0"]
+    tstore.save_checkpoint(tmp_path / "n", 1, nested)
+    back, _ = tstore.load_checkpoint(tmp_path / "n", 1, nested)
+    assert isinstance(back["w"], list) and isinstance(back["w"][1], tuple)
+    assert back["w"][1][1] is None and int(back["s"]) == 4
+    with pytest.raises(KeyError):
+        tstore.load_checkpoint(tmp_path / "n", 1, {"w": [0, 0, 0]})
+
+
+# --- the launcher ----------------------------------------------------------------------
+
+LAUNCH = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--steps", "6",
+          "--batch", "2", "--seq", "32", "--ckpt-every", "2", "--seed", "3"]
+
+
+def test_launcher_crash_and_resume_equals_uninterrupted(tmp_path):
+    straight = t_launch.main(LAUNCH + ["--ckpt", str(tmp_path / "a")])
+    with pytest.raises(SystemExit) as crash:
+        t_launch.main(LAUNCH + ["--ckpt", str(tmp_path / "b"), "--crash-at-step", "5"])
+    assert crash.value.code == t_launch.CRASH_EXIT_CODE
+    assert tstore.latest_step(tmp_path / "b") == 4
+    resumed = t_launch.main(LAUNCH + ["--ckpt", str(tmp_path / "b"), "--resume"])
+    for a, b in zip(tree_leaves(straight, _is_tensor), tree_leaves(resumed, _is_tensor)):
+        assert torch.equal(a, b)
+    assert int(resumed.opt["step"]) == 6
+    assert tstore.latest_step(tmp_path / "b") == 6
+
+
+def test_launcher_resumes_from_reference_checkpoint(tmp_path, monkeypatch):
+    """The reference's launcher writes a smoke checkpoint; the port's
+    resumes from it and holds exactly its parameters and moments."""
+    ck = str(tmp_path / "ref")
+    argv = ["--arch", "olmo-1b", "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "32", "--ckpt", ck]
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    j_launch.main()
+    arrays, meta = tstore.load_arrays(ck, 2)
+    assert meta == {"arch": "olmo-1b-smoke"}
+    state = t_launch.main(argv + ["--resume", "--device", "cpu"])
+    flat = tstore._flatten(state)
+    assert sorted(flat) == sorted(arrays)
+    for k, t in flat.items():
+        assert t.dtype == torch.from_numpy(arrays[k]).dtype, k
+        np.testing.assert_array_equal(t.numpy(), arrays[k], err_msg=k)
