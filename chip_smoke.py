@@ -71,6 +71,27 @@ Run from the root of a checkout on a machine with one CUDA card and
                  pass in (a) and once per shard per pass in (b); then that
                  kernel held against its plain version on the inputs run (a)
                  gave it
+  observability  every plane of repro_torch.obs on the card (tracer,
+                 metrics, exporter, health with an SLO, forensics,
+                 accounting; windows of 20 s): (a) devplane_churn's trace,
+                 run bare, with the tracer built but disabled, with every
+                 plane, and with every plane on the CPU: equal trials, and
+                 alerts, export windows, capacity samples, span trees and
+                 forensics card = CPU (values within 1e-6, max error
+                 printed); the streaming example's entry point on the card
+                 and the CPU (kernel 2, forensics from its scores: one
+                 launch a decision), and its engine sharded over 4 shard
+                 spans against ops (kernel 3's decide_topk); (b) (a)'s
+                 planes-on run crashed halfway and recovered: durable alert
+                 prefix + re-emitted suffix, export windows, forensics,
+                 samples and span tree of the suffix equal (a)'s; (c) the
+                 health demo's adversarial trace: every ALERT_KINDS entry,
+                 card = CPU; (d) readout_decide's shape phased (S = 4, both
+                 routes): the fused pick, the three phase spans,
+                 phase_times in us, a torch.profiler capture of it; (e) ms a
+                 policy launch bare, tracer off and every plane on, and the
+                 disabled per-event sites' us against the reference's 1%
+                 target (reported, not gated)
   kernels_data_plane
                  the flash attention kernels against their plain version at
                  qwen3-4b's shape (bf16 and float32), olmo-1b's MHA,
@@ -237,6 +258,12 @@ DEVPLANE_FLEET = (("slow", 8), ("fast", 8))
 DEVPLANE_MAX_LIVE = 5000
 DEVPLANE_SHARDS = 4
 DEVPLANE_SNAPSHOT_EVERY = 200  # processed events between snapshots in (e)
+# observability: the streaming example's windows (export, health and
+# capacity, sim-seconds) and SLO
+OBS_WINDOW = 20.0
+OBS_SLO = {"device_utilization": 0.25, "ttfo_p99": 100.0}
+OBS_RTOL = 1e-6                # forensics values, card against CPU
+OBS_SITE_ITERS = 20_000        # passes over the disabled per-event sites
 DEVPLANE_CPU_HORIZON = np.inf  # the CPU twin's run (all of it, or a prefix
                                # to this many simulated seconds)
 CLASSES_C = 4                  # device classes of the service-size case
@@ -769,9 +796,9 @@ def host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
-    """readout_decide_topk at service size against the unsharded pipeline:
-    gp_readout over all of W, EIrate, first argmax (and the flat top-k)."""
+def readout_inputs(rng, dev):
+    """readout_decide's service-size inputs: (W, alpha, mu0, kdiag, member,
+    cost, best, selected), W (k_obs, n) with 100 models a tenant."""
     k_obs, n, N = READOUT_SHAPE
     W = torch.from_numpy((rng.standard_normal((k_obs, n)) * 0.03)
                          .astype(np.float32)).to(dev)
@@ -783,6 +810,14 @@ def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
     cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
     best = torch.from_numpy(rng.normal(0.5, 0.5, N).astype(np.float32)).to(dev)
     sel = torch.from_numpy(rng.random(n) < 0.25).to(dev)
+    return W, alpha, mu0, kd, member, cost, best, sel
+
+
+def readout_decide_phase(rng, dev, ShardedScorer, ops, ref, counters):
+    """readout_decide_topk at service size against the unsharded pipeline:
+    gp_readout over all of W, EIrate, first argmax (and the flat top-k)."""
+    k_obs, n, N = READOUT_SHAPE
+    W, alpha, mu0, kd, member, cost, best, sel = readout_inputs(rng, dev)
     mem_t = torch.from_numpy(member).to(dev)
     cost_t = torch.from_numpy(cost).to(dev)
 
@@ -1170,6 +1205,379 @@ def devplane_phase(dev, counters, DevPlaneEngine, two_class_registry, stream,
         trials_equal={"b_a": True, "e_a": True, "c_d": True,
                       "cpu_a": len(cpu)},
         runs=runs, main_path_inputs=[main_case])
+
+
+# ---- the observability planes -----------------------------------------------------
+
+def obs_planes(obs, health=None):
+    """A fresh set of every plane of ``repro_torch.obs``, at the streaming
+    example's settings (windows of OBS_WINDOW sim-seconds, its SLO)."""
+    reg = obs.MetricsRegistry()
+    return dict(
+        tracer=obs.Tracer(enabled=True), metrics=reg,
+        exporter=obs.MetricsExporter(reg, window=OBS_WINDOW),
+        health=health or obs.HealthMonitor(slo=OBS_SLO, window=OBS_WINDOW),
+        forensics=obs.ForensicsRecorder(),
+        accounting=obs.CapacityAccountant(reg, window=OBS_WINDOW))
+
+
+def alert_records(engine) -> list[dict]:
+    return [a.to_record() for a in engine.health.alerts]
+
+
+def export_keys(records, alerts: bool = True) -> list:
+    """The sim-time fields of export records (their metrics hold wall-clock
+    histograms), with the alert counts unless ``alerts`` is False (a
+    resumed monitor counts only what it re-emits)."""
+    return [[r["window"], r["t"], r["event_index"], bool(r.get("final"))]
+            + ([r.get("alerts")] if alerts else []) for r in records]
+
+
+def forensics_errors(name, got: list[dict], want: list[dict]) -> dict:
+    """Card records against CPU records: equal keys, winners, candidate ids,
+    costs and counterfactuals, and every value (mu, sd, EIrate, EI, margin)
+    within OBS_RTOL of the CPU's.  Returns the largest relative difference
+    of each."""
+    check(len(got) == len(want),
+          f"observability {name}: {len(got)} forensics records on the card, "
+          f"{len(want)} on the CPU")
+    err = {f: 0.0 for f in ("mu", "sd", "eirate", "ei", "margin")}
+
+    def rel(g, w):
+        return 0.0 if g == w else abs(g - w) / max(abs(w), 1e-300)
+
+    for g, w in zip(got, want):
+        if g.get("record") == "incident":
+            check(g == w, f"observability {name}: incident {g} vs {w}")
+            continue
+        same = {k: g[k] == w[k] for k in ("t", "event_index", "seq", "scorer",
+                                          "speed", "device_class",
+                                          "uniform_cost")}
+        same["ids"] = ([c["model"] for c in g["topk"]]
+                       == [c["model"] for c in w["topk"]])
+        same["cost"] = ([c["cost"] for c in g["topk"]]
+                        == [c["cost"] for c in w["topk"]])
+        check(all(same.values()), f"observability {name}: forensics record "
+              f"differs from the CPU's: {same}, {g} vs {w}")
+        for cg, cw in zip(g["topk"], w["topk"]):
+            for f in ("mu", "sd", "eirate", "ei"):
+                err[f] = max(err[f], rel(cg[f], cw[f]))
+        if w["margin"] is not None:
+            err["margin"] = max(err["margin"], abs(g["margin"] - w["margin"])
+                                / abs(w["winner"]["eirate"]))
+    check(max(err.values()) <= OBS_RTOL,
+          f"observability {name}: forensics values off the CPU's by {err}")
+    return err
+
+
+def disabled_sites_us(engine) -> float:
+    """Mean µs of the pop loop's per-event plane sites with every plane
+    None (``StreamEngine._drain``: forensics, metrics, accounting, health,
+    exporter), timed directly over OBS_SITE_ITERS passes."""
+    eng = engine
+
+    def sites():
+        if eng.forensics is not None:
+            eng.forensics.begin_event(0.0, 0)
+        if eng.metrics is not None:
+            pass
+        if eng.accounting is not None:
+            eng.accounting.tick(0.0, 0, eng)
+        if eng.health is not None:
+            eng._health_tick()
+        if eng.exporter is not None:
+            eng.exporter.tick(0.0, 0)
+
+    for _ in range(500):
+        sites()
+    t0 = time.perf_counter()
+    for _ in range(OBS_SITE_ITERS):
+        sites()
+    return (time.perf_counter() - t0) / OBS_SITE_ITERS * 1e6
+
+
+def observability_phase(dev, counters, DevPlaneEngine, two_class_registry,
+                        stream, obs, ShardedScorer):
+    """(a) every plane on devplane_churn's trace and the streaming example,
+    card against CPU and against bare twins; (b) a crash and recovery with
+    every plane on; (c) the adversarial health trace; (d) the phased
+    sharded decision at readout_decide's size; (e) the planes' cost."""
+    import contextlib
+    import io
+    from repro_torch.examples import health_demo, streaming_service
+    from repro_torch.obs import profile
+    Watched = watched(DevPlaneEngine)
+    trace = stream.device_churn_trace(**DEVPLANE_TRACE)
+    t_phase = time.perf_counter()
+
+    def engine(device, **kw):
+        # devplane_churn's run (a): batched, ops, DEVPLANE_SHARDS shard spans
+        reg = two_class_registry(2.0, overhead=0.5)
+        return Watched(reg.build_fleet(list(DEVPLANE_FLEET)), "mdmt", seed=0,
+                       registry=reg, launch_order="fastest",
+                       max_live_models=DEVPLANE_MAX_LIVE,
+                       num_shards=DEVPLANE_SHARDS, device=device, **kw)
+
+    def run(name, eng, tr=trace):
+        reset(counters)
+        t0 = time.perf_counter()
+        res = eng.run(tr)
+        if eng.cp.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, dict(
+            run=name, device=str(eng.cp.device), trials=len(res.trials),
+            events=eng.event_index, policy_launches=res.policy_launches,
+            scoring_passes=eng._scoring_passes, dry_passes=eng.dry_passes,
+            wall_s=wall,
+            wall_ms_per_policy_launch=wall / max(res.policy_launches, 1) * 1e3,
+            decision_ms_per_policy_launch=(
+                res.decision_seconds / max(res.policy_launches, 1) * 1e3),
+            launches=read(counters))
+
+    # (a), devplane: bare, the tracer built but disabled, every plane on
+    # (card, then CPU)
+    runs, results, engines = {}, {}, {}
+    for name, device, kw in (
+            ("none", dev, {}),
+            ("disabled", dev, {"tracer": obs.Tracer(enabled=False)}),
+            ("enabled", dev, obs_planes(obs)),
+            ("enabled_cpu", "cpu", obs_planes(obs))):
+        engines[name] = engine(device, **kw)
+        results[name], runs[name] = run(name, engines[name])
+    bare = trial_rows(results["none"])
+    for name in ("disabled", "enabled", "enabled_cpu"):
+        check(trial_rows(results[name]) == bare,
+              f"observability (a): run {name}'s trials differ from the bare "
+              f"twin's")
+    on, cpu = engines["enabled"], engines["enabled_cpu"]
+    r = runs["enabled"]
+    la = r["launches"]
+    check(la["eirate_classes"] == r["scoring_passes"] - r["dry_passes"]
+          and la["gp_readout"] > 0 and la["eirate"] == 0
+          and la["eirate_topk"] == 0
+          and runs["none"]["launches"] == la,
+          f"observability (a): launches {la} for {r['scoring_passes']} passes "
+          f"({r['dry_passes']} dry), bare {runs['none']['launches']}")
+    check(alert_records(on) == alert_records(cpu) and on.health.alerts
+          and on.log.alerts == alert_records(on),
+          "observability (a): the card's alerts differ from the CPU's")
+    check(export_keys(on.exporter.records) == export_keys(cpu.exporter.records),
+          "observability (a): export windows differ card against CPU")
+    check(on.accounting.samples == cpu.accounting.samples,
+          "observability (a): capacity samples differ card against CPU")
+    check(on.tracer.signature() == cpu.tracer.signature(),
+          "observability (a): span trees differ card against CPU")
+    dp_err = forensics_errors("(a) devplane", on.forensics.records,
+                              cpu.forensics.records)
+    check(sum(1 for f in on.forensics.records if f.get("record") != "incident")
+          >= r["scoring_passes"] - r["dry_passes"],
+          "observability (a): fewer forensics records than scoring passes")
+
+    # (a), the streaming example's entry point with every plane on (it
+    # checks its own bare twin), card and CPU: kernel 2 with the forensics
+    # top-4 from its scores; then its engine sharded (kernel 3, decide_topk)
+    # against ops, both in 4 shard spans, on the card
+    flags = ["--trace", "--health", "--forensics", "--capacity"]
+    example = {}
+    for device in (str(dev), "cpu"):
+        reset(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            eng, res = streaming_service.main(["--device", device] + flags)
+        if eng.cp.device.type == "cuda":
+            torch.cuda.synchronize()
+        example[device] = (eng, res, dict(
+            wall_s=time.perf_counter() - t0, launches=read(counters),
+            decisions=sum(1 for f in eng.forensics.records
+                          if f.get("record") != "incident"),
+            bare_twin_identical="bare twin identical=True" in out.getvalue()))
+    (ex, exres, exrow), (ecpu, ecres, _) = example[str(dev)], example["cpu"]
+    check(trial_rows(exres) == trial_rows(ecres)
+          and alert_records(ex) == alert_records(ecpu)
+          and export_keys(ex.exporter.records)
+          == export_keys(ecpu.exporter.records)
+          and ex.accounting.samples == ecpu.accounting.samples
+          and exrow["bare_twin_identical"],
+          "observability (a): the streaming example on the card differs from "
+          "the CPU's")
+    check(exrow["launches"]["eirate"] == 2 * exrow["decisions"]
+          and exrow["launches"]["eirate_topk"] == 0,
+          f"observability (a): the example launched {exrow['launches']} for "
+          f"{exrow['decisions']} recorded decisions (planes-on run + bare "
+          f"twin: one EIrate launch each)")
+    ex_err = forensics_errors("(a) example", ex.forensics.records,
+                              ecpu.forensics.records)
+    make = streaming_service.engine_factory(
+        streaming_service.parser().parse_args(["--device", str(dev)] + flags))
+    ex_trace = streaming_service.make_trace(
+        streaming_service.parser().parse_args([]))
+    shard_runs = {}
+    for scorer in ("ops", "sharded"):
+        reset(counters)
+        eng = make(scorer=scorer, num_shards=DEVPLANE_SHARDS)
+        res = eng.run(ex_trace)
+        torch.cuda.synchronize()
+        shard_runs[scorer] = (eng, res, read(counters))
+    (so, sores, sola), (ss, ssres, ssla) = shard_runs["ops"], shard_runs["sharded"]
+    ss_decisions = sum(1 for f in ss.forensics.records
+                       if f.get("record") != "incident")
+    check(trial_rows(sores) == trial_rows(ssres)
+          and [f["winner"]["model"] for f in so.forensics.records]
+          == [f["winner"]["model"] for f in ss.forensics.records]
+          and alert_records(so) == alert_records(ss),
+          "observability (a): sharded and ops differ with every plane on")
+    check(ssla["eirate_topk"] == DEVPLANE_SHARDS * ss_decisions
+          and ssla["eirate"] == 0 and sola["eirate_topk"] == 0,
+          f"observability (a): sharded launches {ssla} for {ss_decisions} "
+          f"decisions, ops {sola}")
+
+    # (b): (a)'s run with every plane on, durable, crashed halfway,
+    # recovered and resumed
+    work = ROOT / "build" / "chip_smoke" / "observability"
+    shutil.rmtree(work, ignore_errors=True)
+    crash_at = on.event_index // 2
+    eng_b = engine(dev, log=stream.EventLog(work / "log"),
+                   snapshot_root=str(work / "snap"),
+                   snapshot_every=DEVPLANE_SNAPSHOT_EVERY,
+                   fault=stream.FaultInjector(crash_at), **obs_planes(obs))
+    t0 = time.perf_counter()
+    try:
+        eng_b.run(trace)
+        crashed = False
+    except stream.SimulatedCrash:
+        crashed = True
+    eng_b.log.close()
+    check(crashed, f"observability (b): no crash at event {crash_at}")
+    durable = stream.EventLog.load(work / "log")
+    rec_b, step = stream.recover(lambda **kw: engine(dev, **obs_planes(obs),
+                                                     **kw),
+                                 str(work / "snap"), durable)
+    res_b = rec_b.resume()
+    torch.cuda.synchronize()
+    suffix = alert_records(rec_b)
+    check(trial_rows(res_b) == bare, "observability (b): the recovered run's "
+          "trials differ")
+    check([a for a in durable.alerts if a["event_index"] <= step] + suffix
+          == alert_records(on) and rec_b.log.alerts == suffix,
+          "observability (b): durable alerts + the re-emitted suffix differ "
+          "from the uninterrupted run's")
+    check(export_keys(rec_b.exporter.records, alerts=False)
+          == [k for k in export_keys(on.exporter.records, alerts=False)
+              if k[2] > step],
+          "observability (b): the replayed export windows differ")
+    check(rec_b.forensics.records
+          == [f for f in on.forensics.records if f["event_index"] > step],
+          "observability (b): the replayed forensics records differ")
+    check(rec_b.accounting.samples
+          == [s for s in on.accounting.samples if s["event_index"] > step],
+          "observability (b): the replayed capacity samples differ")
+    sig = on.tracer.signature(min_trace=step + 1)
+    check(sig and rec_b.tracer.signature(min_trace=step + 1) == sig,
+          "observability (b): the replayed span tree differs")
+    crash = dict(crash_at=crash_at, resumed_from=step,
+                 alerts_prefix=len(alert_records(on)) - len(suffix),
+                 alerts_suffix=len(suffix),
+                 export_windows_suffix=len(rec_b.exporter.records),
+                 forensics_suffix=len(rec_b.forensics.records),
+                 wall_s=time.perf_counter() - t0)
+    shutil.rmtree(work, ignore_errors=True)
+
+    # (c): the adversarial trace on the card, every ALERT_KINDS entry
+    reset(counters)
+    hd, hdres, _ = health_demo.run(dev)
+    torch.cuda.synchronize()
+    hd_launches = read(counters)
+    hd_cpu, hd_cpu_res, _ = health_demo.run("cpu")
+    fired = sorted({a.kind for a in hd.health.alerts})
+    check(fired == sorted(obs.ALERT_KINDS),
+          f"observability (c): fired {fired}, not every one of "
+          f"{obs.ALERT_KINDS}")
+    check(alert_records(hd) == alert_records(hd_cpu)
+          and trial_rows(hdres) == trial_rows(hd_cpu_res),
+          "observability (c): the card's alerts differ from the CPU's")
+    hd_err = forensics_errors("(c)", hd.forensics.records,
+                              hd_cpu.forensics.records)
+
+    # (d): the phased decision at readout_decide's service size, S = 4
+    W, alpha, mu0, kd, member, cost, best, sel = readout_inputs(
+        np.random.default_rng(1), dev)
+    phased = {}
+    for kernel in ("eirate_topk", "eirate"):
+        sc = ShardedScorer(DEVPLANE_SHARDS, topk=TOPK, kernel=kernel,
+                           device=dev)
+        sc.refresh(member, cost)
+        v, g = sc.readout_decide_topk(W, alpha, mu0, kd, best, sel)
+        sc.tracer = obs.Tracer(enabled=True)
+        reset(counters)
+        pv, pg = sc.readout_decide_topk_phased(W, alpha, mu0, kd, best, sel)
+        la = read(counters)
+        spans = [s["name"] for s in sc.tracer.records()]
+        check(torch.equal(v, pv) and torch.equal(g, pg),
+              f"observability (d) {kernel}: the phased pick "
+              f"({int(pg[0])}) differs from the fused one ({int(g[0])})")
+        check(spans == ["readout", "score_topk", "gather_pick"],
+              f"observability (d) {kernel}: spans {spans}")
+        check(la["gp_readout"] == DEVPLANE_SHARDS
+              and la[kernel] == DEVPLANE_SHARDS
+              and sum(la.values()) == 2 * DEVPLANE_SHARDS,
+              f"observability (d) {kernel}: launches {la}")
+        span_us = {s["name"]: s["dur_us"] for s in sc.tracer.records()}
+        sc.tracer = obs.NULL_TRACER
+        times = sc.phase_times(W, alpha, mu0, kd, best, sel, iters=20,
+                               warmup=3)
+        phased[kernel] = dict(pick=int(pg[0]), launches=la, spans=spans,
+                              phase_times_us=times, first_call_span_us=span_us)
+    prof = None
+    if profile.profiler_available():
+        prof = profile.capture_call(
+            lambda: sc.readout_decide_topk_phased(W, alpha, mu0, kd, best,
+                                                  sel),
+            ROOT / "build" / "chip_smoke" / "profile", iters=3)
+
+    # (e): the planes' cost per decision (policy launch), from (a)'s runs;
+    # the reference's target for the disabled stack, under 1% of a
+    # decision, is reported, not gated: host clocks spread about 2x between
+    # calls
+    sites_us = disabled_sites_us(engines["none"])
+    base = runs["none"]["wall_ms_per_policy_launch"]
+    cost = {name: dict(wall_ms_per_policy_launch=runs[name][
+                           "wall_ms_per_policy_launch"],
+                       decision_ms_per_policy_launch=runs[name][
+                           "decision_ms_per_policy_launch"],
+                       over_bare=runs[name]["wall_ms_per_policy_launch"] / base)
+            for name in ("none", "disabled", "enabled")}
+    cost["disabled_sites_us_per_event"] = sites_us
+    cost["disabled_sites_share_of_a_decision"] = (
+        sites_us * 1e-3 / runs["none"]["decision_ms_per_policy_launch"])
+    cost["target_share"] = 0.01
+    cost["decisions_changed"] = 0
+    launches = [r["launches"] for r in runs.values()] + [
+        exrow["launches"], sola, ssla, hd_launches] + [
+        p["launches"] for p in phased.values()]
+    return dict(
+        phase="observability", card=card_name_and_power(),
+        trace=DEVPLANE_TRACE, window=OBS_WINDOW, slo=OBS_SLO,
+        devplane=dict(runs=runs, alerts=len(alert_records(on)),
+                      alert_kinds=sorted({a.kind for a in on.health.alerts}),
+                      export_windows=len(on.exporter.records),
+                      capacity_samples=len(on.accounting.samples),
+                      forensics_records=len(on.forensics.records),
+                      spans=len(on.tracer.records()),
+                      forensics_max_rel_err=dp_err),
+        example=dict(wall_s=exrow["wall_s"], launches=exrow["launches"],
+                     decisions=exrow["decisions"],
+                     alerts=len(alert_records(ex)),
+                     forensics_max_rel_err=ex_err,
+                     sharded_launches=ssla, sharded_decisions=ss_decisions),
+        crash=crash,
+        health_demo=dict(alert_kinds=fired, alerts=len(alert_records(hd)),
+                         launches=hd_launches, forensics_max_rel_err=hd_err),
+        phased=phased, profile=prof, cost=cost,
+        launches={k: sum(la[k] for la in launches) for k in counters},
+        forensics_max_rel_err=max(max(e.values())
+                                  for e in (dp_err, ex_err, hd_err)),
+        phase_s=time.perf_counter() - t_phase)
 
 
 # ---- the data plane ------------------------------------------------------------
@@ -2417,7 +2825,7 @@ def main() -> int:
     from repro_torch import _build
     from repro_torch.core import (ControlPlane, azure_problem, regret_curves,
                                   simulate, synthetic_matern_problem)
-    from repro_torch import stream
+    from repro_torch import obs, stream
     from repro_torch.core.tenancy import _matern_block_chol, _matern_draw
     from repro_torch.devplane import DevPlaneEngine, two_class_registry
     from repro_torch.kernels import ei_score, gp_readout, ops, ref
@@ -2553,6 +2961,11 @@ def main() -> int:
     emit(dp)
     main_launches["eirate_classes"] = dp_runs["a"]["launches"]["eirate_classes"]
 
+    observability = observability_phase(dev, counters, DevPlaneEngine,
+                                        two_class_registry, stream, obs,
+                                        ShardedScorer)
+    emit(observability)
+
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_cases = [flash_case(*c, gen, dev, flash_mod, ref) for c in FLASH_CASES]
@@ -2631,6 +3044,9 @@ def main() -> int:
         extra[name]["figures_launches"] = figures["launches"][name]
     # the service's decisions (the example's protocol on the card)
     extra["gp_readout"]["service_launches"] = service["launches"]["gp_readout"]
+    # the observability phase's (every plane on; kernels 1-4)
+    for name, n in observability["launches"].items():
+        extra[name]["observability_launches"] = n
     for name in ("eirate", "eirate_topk", "eirate_classes"):
         # their "operations" floor is FP64: erf or erfc, and exp, in double,
         # as many as the inputs' terms execute

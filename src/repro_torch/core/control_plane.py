@@ -43,7 +43,9 @@ the same float32 casts as the reference's device mirrors.
 :meth:`choose_mdmt_batch` is the elastic device plane's scoring pass: one
 class-axis EIrate launch (``kernels.ops.eirate_classes``) and a stable
 per-class top-k.  A ``repro_torch.obs.Tracer`` (:meth:`set_tracer`) opens
-the reference's spans; forensics waits for the observability slice.
+the reference's spans, and a ``repro_torch.obs.ForensicsRecorder``
+(:meth:`set_forensics`) records each decision's top candidates, taken from
+the scores the decision already computed: no extra scoring launch.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import torch
 
 from ..device import resolve
 from ..kernels import ops
+from ..kernels.ref import topk_first
 from ..obs import NULL_TRACER
 from ..shardgp import compact as _compact
 from ..shardgp.layout import BlockPlacement, ShardLayout
@@ -66,7 +69,17 @@ from .tenancy import Problem
 
 SCORERS = ("ops", "sharded")
 
+#: candidates kept per forensics record on the ops path (the sharded path
+#: keeps its scorer's own top-k)
+FORENSICS_TOPK = 4
+
 _FLOOR_SDS = 5.0  # "no observation yet" sits this many prior sds below mu0
+
+
+def _host(x) -> np.ndarray:
+    """A tensor's values on the host (a copy, and a sync, from the card);
+    host arrays pass through."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _check_scorer(scorer: str) -> None:
@@ -189,6 +202,7 @@ class ControlPlane:
         self.gp.ensure_capacity(cap_n)
         self.rr_pointer = 0
         self.tracer = NULL_TRACER
+        self._forensics = None
         self._rebuild_mirrors()
 
     @classmethod
@@ -252,6 +266,7 @@ class ControlPlane:
         cp.gp = gp
         cp.rr_pointer = rr_pointer
         cp.tracer = NULL_TRACER
+        cp._forensics = None
         cp._rebuild_mirrors()
         return cp
 
@@ -608,6 +623,60 @@ class ControlPlane:
                   if self._layout is not None else None)
         return {"gp": gp_stats, "layout": layout}
 
+    def set_forensics(self, recorder) -> None:
+        """Install a ``repro_torch.obs.ForensicsRecorder`` on the decision
+        path.  Observation-only: the sharded path keeps the top-k the
+        decision already computes (``decide()`` is the head of
+        ``decide_topk()``), and the ops path takes the top
+        ``FORENSICS_TOPK`` of the EIrate vector its decision scored, by a
+        stable descending sort, so the head is the decision's first argmax.
+        Either way the record's copies to the host are the only work added,
+        and only while a recorder is installed."""
+        self._forensics = recorder
+
+    def _base_cost(self, g: int) -> float:
+        """Host-side cost of one candidate, valid across the sharded
+        scorer's padded capacity (padding cost is 1.0 by convention)."""
+        if self._sharded is not None and self._sharded._cost_host is not None:
+            ch = self._sharded._cost_host
+            if g < len(ch):
+                return float(ch[g])
+        return float(self.cost[g]) if g < len(self.cost) else 1.0
+
+    def _record_forensics(self, values, gids, mu, sd, *,
+                          speed: float = 1.0, overhead: float = 0.0,
+                          device_class: str | None = None) -> None:
+        """Feed one top-k into the forensics recorder, with the host-side
+        mu/sd/cost decomposition aligned to the candidates."""
+        values, gids, mu, sd = (_host(x) for x in (values, gids, mu, sd))
+        n = mu.shape[0]
+        eff, mu_k, sd_k = [], [], []
+        for gi in gids:
+            gi = int(gi)
+            eff.append(self._base_cost(gi) / speed + overhead)
+            mu_k.append(float(mu[gi]) if gi < n else 0.0)
+            sd_k.append(float(sd[gi]) if gi < n else 0.0)
+        self._forensics.on_decision(
+            scorer=self.scorer, values=values, gids=gids, eff_costs=eff,
+            mu=mu_k, sd=sd_k, speed=speed, device_class=device_class)
+
+    def _record_batch_forensics(self, v, g, mu, sd, rates, overheads,
+                                class_names) -> None:
+        """One forensics record per class row of a batched decision (the
+        (C, k) top-k the greedy assignment consumes)."""
+        if self._forensics is None:
+            return
+        rates = np.asarray(rates, dtype=np.float64)
+        overheads = np.asarray(overheads, dtype=np.float64)
+        mu, sd = _host(mu), _host(sd)
+        for c in range(v.shape[0]):
+            name = (str(class_names[c]) if class_names is not None
+                    else f"class{c}")
+            self._record_forensics(v[c], g[c], mu, sd,
+                                   speed=float(rates[c]),
+                                   overhead=float(overheads[c]),
+                                   device_class=name)
+
     # ---- event steps -------------------------------------------------------
 
     def best_effective(self) -> np.ndarray:
@@ -660,8 +729,16 @@ class ControlPlane:
             with tr.span("posterior", scorer="sharded"):
                 mu, sd = self._posterior_host()
             with tr.span("score", scorer="sharded"):
-                idx, score = self._sharded.decide(mu, sd, self._best_t,
-                                                  self.selected, device_speed)
+                if self._forensics is None:
+                    idx, score = self._sharded.decide(
+                        mu, sd, self._best_t, self.selected, device_speed)
+                else:
+                    # decide() is the head of decide_topk(): keeping the k
+                    # candidates changes no decision
+                    v, g = (_host(x) for x in self._sharded.decide_topk(
+                        mu, sd, self._best_t, self.selected, device_speed))
+                    idx, score = int(g[0]), float(v[0])
+                    self._record_forensics(v, g, mu, sd, speed=device_speed)
             if not np.isfinite(score) or score <= -1e29:
                 return None
             return idx, -1
@@ -677,6 +754,11 @@ class ControlPlane:
                                 cost, self._selected_t)
             idx = int(torch.argmax(scores))    # first maximum, as jnp.argmax
             score = float(scores[idx])
+        if self._forensics is not None:
+            # the top of the same scores, equal values in ascending id: its
+            # head is the argmax above, and no scoring pass is added
+            v, g = topk_first(scores, min(FORENSICS_TOPK, scores.shape[0]))
+            self._record_forensics(v, g, mu, sd, speed=device_speed)
         if not np.isfinite(score) or score <= -1e29:
             return None
         return idx, -1
@@ -699,9 +781,9 @@ class ControlPlane:
         ``"ops"``: one launch of the class-axis EIrate kernel
         (``ops.eirate_classes``; -1e30 at selected models) and a stable
         per-row top-k.  ``"sharded"``: ``ShardedScorer.decide_topk_classes``.
-        ``class_names`` labels the reference's per-class forensics records
-        and never affects scoring; forensics waits for the observability
-        slice of the port."""
+        ``class_names`` (optional, len C) labels the per-class forensics
+        records when a recorder is installed; it never affects scoring."""
+        rates_in, overheads_in = rates, overheads
         rates = np.asarray(rates, np.float32)
         overheads = np.asarray(overheads, np.float32)
         if self.selected.all():
@@ -717,7 +799,10 @@ class ControlPlane:
                 v, g = self._sharded.decide_topk_classes(
                     mu, sd, self._best_t, self.selected, rates, overheads,
                     k=k)
-                return v.cpu().numpy(), g.cpu().numpy()
+                v, g = v.cpu().numpy(), g.cpu().numpy()
+                self._record_batch_forensics(v, g, mu, sd, rates_in,
+                                             overheads_in, class_names)
+                return v, g
         with tr.span("posterior", scorer=self.scorer):
             mu, sd = tr.sync(self.gp.posterior_sd())
         dev = self.device
@@ -730,7 +815,10 @@ class ControlPlane:
                                         self._membership_t, cm,
                                         self._selected_t)
             v, i = topk_rows_padded(scores, k)
-            return v.cpu().numpy(), i.cpu().numpy()
+            v, i = v.cpu().numpy(), i.cpu().numpy()
+            self._record_batch_forensics(v, i, mu, sd, rates_in,
+                                         overheads_in, class_names)
+            return v, i
 
     def _users_with_work(self) -> np.ndarray:
         has_work = (self.membership & ~self.selected[None, :]).any(axis=1)

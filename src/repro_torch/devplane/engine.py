@@ -206,7 +206,18 @@ class DevPlaneEngine(StreamEngine):
                 self._free.remove(device)
             self._push(self._t + board.policy.duration,
                        "probation", (device,))
+            count = board.quarantine_count(device)
             self.telemetry.on_quarantine(self._t, device)
+            if self.health is not None:
+                self.health.on_quarantine(self._t, self.event_index,
+                                          device, count=count)
+            if self.metrics is not None:
+                self.metrics.counter("engine.devices_quarantined",
+                                     labels={"cls": s.cls}).inc()
+            if self.forensics is not None:
+                self.forensics.on_incident(
+                    kind="device_quarantine", device=int(device),
+                    reason=reason, count=int(count))
         return board.is_quarantined(device)
 
     def _device_ok(self, device: int) -> None:
@@ -270,6 +281,17 @@ class DevPlaneEngine(StreamEngine):
         self._scoring_passes = extra["scoring_passes"]
         if self.quarantine is not None and extra.get("quarantine"):
             self.quarantine.load_state(extra["quarantine"])
+
+    def _capacity_extra(self) -> dict:
+        """Elastic-fleet counters for the capacity plane
+        (``capacity.autoscale_joins`` ... gauges, obs/accounting.py)."""
+        return {
+            "autoscale_joins": self._autoscale_joins,
+            "autoscale_leaves": self._autoscale_leaves,
+            "scoring_passes": self._scoring_passes,
+            "devices_quarantined": (self.quarantine.quarantined_now()
+                                    if self.quarantine is not None else 0),
+        }
 
     # ---- autoscale ---------------------------------------------------------
 
@@ -350,6 +372,9 @@ class DevPlaneEngine(StreamEngine):
             self._decision_seconds += dt
             self._decisions += 1
             self._scoring_passes += 1
+            if self.metrics is not None:
+                self._m_decision_s.observe(dt)
+                self.metrics.counter("engine.scoring_passes").inc()
 
             with self.tracer.span("assign", batch=len(devices)):
                 pairs = greedy_assign(vals, gids, rows)

@@ -1,8 +1,8 @@
 """Decision-path tracing: nestable spans with deterministic ids.
 
-The port's counterpart of ``repro.obs.trace`` (the rest of ``repro.obs``
-arrives with the observability slice): the same spans, ids, signature and
-JSON; ``sync`` waits for the card and the profiler bridge is PyTorch's.
+The port's counterpart of ``repro.obs.trace``: the same spans, ids,
+signature and JSON; ``sync`` waits for the card and the profiler bridge is
+PyTorch's.
 
 A :class:`Tracer` records *spans* — named, attributed, monotonic-clock
 intervals — arranged in trees by nesting.  The design constraints come from

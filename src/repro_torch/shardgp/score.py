@@ -44,6 +44,14 @@ version on the CPU (``kernels.ops``):
 The reference's ``"xla"`` route has no counterpart: on the card every
 route is a kernel.
 
+:meth:`ShardedScorer.readout_decide_topk` runs readout -> score -> pick
+over an explicit W in three phases (each shard's GP readout kernel, each
+shard's score route, the gather and pick);
+:meth:`~ShardedScorer.readout_decide_topk_phased` runs the same phases with
+a tracer span and a synchronize around each, and
+:meth:`~ShardedScorer.phase_times` times each phase alone: the reference's
+phase-split programs, for attributing a decision's time.
+
 The elastic device plane's per-class decision
 (:meth:`ShardedScorer.decide_topk_classes`) takes the class-axis EIrate
 kernel (``csrc/ei_classes.cu``) on each shard's slice, whatever the route:
@@ -125,6 +133,8 @@ class ShardedScorer:
         self.tracer = NULL_TRACER   # installed by ControlPlane.set_tracer
         self._member: list[torch.Tensor] | None = None   # (N_cap, C) per shard
         self._cost: list[torch.Tensor] | None = None     # (C,) per shard
+        self._cost_host = None  # (cap,) host twin: forensics recovers
+        #                         EI = score x cost without a device sync
         self._cap = 0
 
     # ---- per-shard mirrors -------------------------------------------------
@@ -151,6 +161,7 @@ class ShardedScorer:
                         .to(dev) for s, dev in enumerate(self.mesh)]
         self._cost = [torch.from_numpy(c[self._span(s)].copy()).to(dev)
                       for s, dev in enumerate(self.mesh)]
+        self._cost_host = c
 
     def _pad(self, x, fill, dtype) -> np.ndarray:
         if isinstance(x, torch.Tensor):
@@ -272,21 +283,78 @@ class ShardedScorer:
         view where W lies on the shard's device, no copy), then scores and
         reduces it.  The length of ``mu0``, ``kdiag`` and ``selected`` must
         be the refreshed capacity (pad upstream)."""
+        W, alpha, mu0s, kds, rest = self._readout_inputs(
+            W, alpha, mu0, kdiag, best, selected, speed)
+        posts = self._readout_phase(W, alpha, mu0s, kds)
+        return self._gather_pick(self._score_phase(posts, *rest), self.topk)
+
+    def readout_decide_topk_phased(self, W, alpha, mu0, kdiag, best,
+                                   selected, speed: float = 1.0):
+        """The same pipeline as :meth:`readout_decide_topk` and the same
+        launches, run as three phases — readout (the GP readout kernel a
+        shard), local score and top-k (the score route a shard), and the
+        copy of the candidates to ``mesh[0]`` with the global pick — each
+        closed under a ``tracer.span`` with a synchronize (when the tracer
+        is enabled), so the tracer attributes the decision's wall time
+        phase by phase.  The pick is :meth:`readout_decide_topk`'s: both
+        are the same three phases, this one with the syncs between them."""
+        tr = self.tracer
+        W, alpha, mu0s, kds, rest = self._readout_inputs(
+            W, alpha, mu0, kdiag, best, selected, speed)
+        with tr.span("readout", shards=self.num_shards):
+            posts = self._readout_phase(W, alpha, mu0s, kds)
+            tr.sync([t for p in posts for t in p])
+        with tr.span("score_topk", shards=self.num_shards, k=self.topk):
+            cands = self._score_phase(posts, *rest)
+            tr.sync([t for c in cands for t in c])
+        with tr.span("gather_pick", shards=self.num_shards, k=self.topk):
+            return tr.sync(self._gather_pick(cands, self.topk))
+
+    def phase_times(self, W, alpha, mu0, kdiag, best, selected,
+                    speed: float = 1.0, *, iters: int = 10,
+                    warmup: int = 2) -> dict:
+        """Mean wall µs per phase of the phased pipeline, each phase timed
+        alone (``obs.profile.time_us_blocked``: a synchronize after every
+        call) on inputs the phase before computed once, outside the timed
+        region, so no phase hides inside another's launches."""
+        from ..obs.profile import time_us_blocked
+        W, alpha, mu0s, kds, rest = self._readout_inputs(
+            W, alpha, mu0, kdiag, best, selected, speed)
+        posts = self._readout_phase(W, alpha, mu0s, kds)
+        cands = self._score_phase(posts, *rest)
+        return {
+            "readout_us": time_us_blocked(
+                lambda: [t for p in self._readout_phase(W, alpha, mu0s, kds)
+                         for t in p], iters=iters, warmup=warmup),
+            "score_us": time_us_blocked(
+                lambda: [t for c in self._score_phase(posts, *rest)
+                         for t in c], iters=iters, warmup=warmup),
+            "gather_us": time_us_blocked(
+                lambda: self._gather_pick(cands, self.topk),
+                iters=iters, warmup=warmup),
+        }
+
+    def _readout_inputs(self, W, alpha, mu0, kdiag, best, selected, speed):
+        """The readout pipeline's inputs, one slice per shard: (W, alpha,
+        mu0 slices, kdiag slices, (best, costs, selected) per shard)."""
         self._require_refresh()
         if W.shape[1] != self._cap:
             raise ValueError(f"W has {W.shape[1]} columns, the scorer's "
                              f"capacity is {self._cap}")
-        sels = self._per_shard(torch.as_tensor(selected))
-        mu0s, kds = self._per_shard(mu0), self._per_shard(kdiag)
-        bests = self._replicated(best)
-        costs = self._costs(speed)
+        return (W, alpha, self._per_shard(mu0), self._per_shard(kdiag),
+                (self._replicated(best), self._costs(speed),
+                 self._per_shard(torch.as_tensor(selected))))
+
+    def _readout_phase(self, W, alpha, mu0s, kds):
+        """(mu, sd) of each shard's slice: the GP readout kernel on its
+        column slice of W, on the shard's device."""
+        return [ops.gp_readout(W[:, self._span(s)].to(dev), alpha.to(dev),
+                               mu0s[s], kds[s], emit_sd=True)
+                for s, dev in enumerate(self.mesh)]
+
+    def _score_phase(self, posts, bests, costs, sels):
+        """Each shard's local top-k candidates from its posterior slice."""
         c = self._cap // self.num_shards
-        cands = []
-        for s, dev in enumerate(self.mesh):
-            mu, sd = ops.gp_readout(W[:, self._span(s)].to(dev),
-                                    alpha.to(dev), mu0s[s], kds[s],
-                                    emit_sd=True)
-            cands.append(_score_local(mu, sd, bests[s], self._member[s],
-                                      costs[s], sels[s], self.kernel,
-                                      self.topk, s * c))
-        return self._gather_pick(cands, self.topk)
+        return [_score_local(mu, sd, bests[s], self._member[s], costs[s],
+                             sels[s], self.kernel, self.topk, s * c)
+                for s, (mu, sd) in enumerate(posts)]

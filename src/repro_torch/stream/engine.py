@@ -45,9 +45,9 @@ The port's counterpart of ``repro.stream.engine``: the same events, state,
 snapshots and trial sequences.  ``device`` (None = the card, or
 ``device="cpu"``) holds the control plane.  The scorers are the port's:
 ``"ops"`` (the default; it decides as the reference's ``"fused"`` does) and
-``"sharded"``.  The observability hooks of the reference beyond the tracer
-(metrics, export, health, forensics, accounting) arrive with the
-observability slice of the port.
+``"sharded"``.  The observability planes (``repro_torch.obs``: tracer,
+metrics, exporter, health, forensics, accounting) attach where the
+reference's do, with the same records; none of them changes a decision.
 """
 
 from __future__ import annotations
@@ -143,6 +143,11 @@ class StreamEngine:
         snapshot_every: int | None = None,
         fault: FaultInjector | None = None,
         tracer=None,
+        metrics=None,
+        exporter=None,
+        health=None,
+        forensics=None,
+        accounting=None,
         timeout_factor: float | None = None,
         max_retries: int = 2,
         retry_backoff: float = 1.0,
@@ -190,13 +195,40 @@ class StreamEngine:
                                num_shards=num_shards,
                                score_kernel=score_kernel, device=device)
         self._chooser = self.cp.chooser(policy)
-        # tracing (DESIGN.md §13) is observation-only: spans never enter
-        # snapshots or the replay oracle's comparisons, and a traced run's
-        # trial sequence is byte-identical to an untraced one (tested).
-        # trace_id == event_index, so a recovered run re-emits the replayed
-        # suffix's span tree exactly.
+        # observability (DESIGN.md §13): both planes are observation-only —
+        # spans/metrics never enter snapshots or the replay oracle's
+        # comparisons, and a traced run's trial sequence is byte-identical
+        # to an untraced one (tested).  trace_id == event_index, so a
+        # recovered run re-emits the replayed suffix's span tree exactly.
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cp.set_tracer(self.tracer)
+        self.metrics = metrics
+        if metrics is not None:
+            self._m_events = metrics.counter("engine.events")
+            self._m_launches = metrics.counter("engine.launches")
+            self._m_decision_s = metrics.histogram("engine.decision_seconds")
+            self._m_compact_s = metrics.histogram(
+                "engine.compaction_pause_seconds")
+            self._m_snapshot_s = metrics.histogram("engine.snapshot_seconds")
+            self._m_queue = metrics.gauge("engine.queue_depth")
+        # live health plane (DESIGN.md §14): exporter/health/forensics are
+        # observation-only like the tracer — none of their outputs feed the
+        # decision path — but the exporter's window cursor and the health
+        # monitor's detector state ride in snapshot meta so a recovered
+        # run re-emits the identical export/alert suffix.  Alerts stream
+        # write-through to the log's durable alerts.jsonl per event.
+        self.exporter = exporter
+        self.health = health
+        self.forensics = forensics
+        self.cp.set_forensics(forensics)
+        # capacity plane (DESIGN.md §15): same discipline — gauges never
+        # feed a decision; the sample cursor + projection history ride in
+        # snapshot meta.  When both planes run, the exporter also renders
+        # the health monitor's alert counts on its scrape surface.
+        self.accounting = accounting
+        if exporter is not None and health is not None \
+                and exporter.health is None:
+            exporter.health = health
         # mirrors scheduler.simulate's free-device stack: initial pop order is
         # slice M-1, M-2, ...; freed slices are re-pushed on top
         self._free: list[int] = [s.slice_id for s in fleet.slices if s.healthy]
@@ -309,9 +341,12 @@ class StreamEngine:
     def _run_compaction(self) -> None:
         """Rebalance idle tenant blocks across shard spans and remap every
         engine-side structure that holds global model ids."""
+        t0 = _time.perf_counter()
         with self.tracer.span("compaction"):
             remap = self.cp.compact(self.compact_imbalance,
                                     max_moves=self.compact_max_moves)
+        if self.metrics is not None:
+            self._m_compact_s.observe(_time.perf_counter() - t0)
         self.compaction_move_counts.append(len(remap))
         self._fault("mid_compact")
         if not remap:
@@ -360,11 +395,28 @@ class StreamEngine:
                 self.cp.record_failure(model)
                 self.telemetry.on_poisoned_observation(
                     self._t, tr.key, model, t.end - t.start, device=device)
+                if self.health is not None:
+                    self.health.on_poisoned(self._t, self.event_index,
+                                            tr.key, model)
+                if self.metrics is not None:
+                    self.metrics.counter("engine.observations_rejected").inc()
+                if self.forensics is not None:
+                    self.forensics.on_incident(
+                        kind="poisoned_observation", tenant=tr.key,
+                        model=model, device=device)
             else:
                 self._trials[ti] = StreamTrial(
                     t.model, t.tenant_key, t.local_model, t.user_hint,
                     t.device, t.start, t.end, z)
-                self.cp.record_observation(model, z)
+                improved = self.cp.record_observation(model, z)
+                if self.health is not None:
+                    # d2 stays on the device until a monitor asks for it:
+                    # the sync is paid only on the health-enabled path
+                    d2 = self.cp.gp.last_d2
+                    self.health.on_observation(
+                        self._t, self.event_index, tr.key, improved,
+                        d2=None if d2 is None else float(d2),
+                        jitter=self.cp._jitter, model=model)
                 self.telemetry.on_observation(
                     self._t, tr.key, model, z, t.end - t.start, device=device)
         self.fleet.slices[device].current_trial = None
@@ -457,6 +509,17 @@ class StreamEngine:
         self.telemetry.on_trial_timeout(
             self._t, t.tenant_key, t.model, self._t - t.start,
             device=device, retrying=retrying or owner.departed)
+        if self.health is not None:
+            self.health.on_timeout(self._t, self.event_index, device,
+                                   t.tenant_key,
+                                   overrun=self._t - t.start)
+        if self.metrics is not None:
+            self.metrics.counter("engine.trials_timed_out",
+                                 labels={"cls": s.cls}).inc()
+        if self.forensics is not None:
+            self.forensics.on_incident(
+                kind="trial_timeout", tenant=t.tenant_key, model=t.model,
+                device=device, attempt=attempt, retrying=retrying)
 
     def _handle_retry(self, key: int, model: int, attempt: int) -> None:
         """Backoff expired: deselect the model and re-queue it through the
@@ -469,6 +532,11 @@ class StreamEngine:
         self.cp.record_failure(model)
         self._pending.append((key, model))
         self.telemetry.on_trial_retry(self._t, key, model, attempt)
+        if self.health is not None:
+            self.health.on_retry(self._t, self.event_index, key, model,
+                                 attempt)
+        if self.metrics is not None:
+            self.metrics.counter("engine.trials_retried").inc()
 
     def _handle_hang(self, slice_id: int) -> None:
         """Chaos event: the trial currently on ``slice_id`` will never
@@ -532,6 +600,12 @@ class StreamEngine:
             heap.append((t, seq, kind, payload))
         # same (t, seq) arrangement => still a valid heap
         self._heap = heap
+        if self.metrics is not None:
+            self.metrics.counter("engine.mesh_shrinks").inc()
+        if self.forensics is not None:
+            self.forensics.on_incident(kind="mesh_shrink",
+                                       num_shards=num_shards,
+                                       slots_remapped=len(remap))
 
     # ---- device quarantine hooks (devplane overrides; DESIGN.md §16) -------
 
@@ -590,6 +664,13 @@ class StreamEngine:
                 # deadline pops later as a logged no-op
                 self._push(self._t + self.timeout_factor * dur,
                            "timeout", (d, model, ti))
+        if self.metrics is not None:
+            self._m_launches.inc()
+            self.metrics.counter("engine.launches_by_class",
+                                 labels={"cls": s.cls}).inc()
+        if self.health is not None:
+            self.health.on_launch(self._t, self.event_index, owner.key,
+                                  model, s.cls)
         self.telemetry.on_launch(self._t, owner.key, model, d, dur)
 
     def _duration_on(self, model: int, s) -> float:
@@ -630,6 +711,8 @@ class StreamEngine:
             dt = _time.perf_counter() - t0
             self._decision_seconds += dt
             self._decisions += 1
+            if self.metrics is not None:
+                self._m_decision_s.observe(dt)
             if pick is None:
                 return
             model, hint = pick
@@ -667,10 +750,34 @@ class StreamEngine:
         """Hook between event handling and the launch pass — the devplane
         engine evaluates its autoscale policy here.  Base: no-op."""
 
+    def _capacity_extra(self) -> dict:
+        """Extra scalar capacity gauges for the accounting plane — the
+        devplane engine reports autoscale joins/leaves and scoring passes
+        here.  Base: nothing."""
+        return {}
+
+    # ---- live health plane (DESIGN.md §14) ---------------------------------
+
     def _backlog(self) -> int:
         """Launchable pool size: live models neither observed nor in
-        flight (the autoscale signal)."""
+        flight — the health plane's notion of pending work, and the
+        autoscale signal."""
         return int(np.count_nonzero(~self.cp.selected & self.cp.model_live))
+
+    def _health_tick(self) -> None:
+        """Feed the watchdogs once per processed event (sim-time inputs
+        only — alert content must replay deterministically) and forward
+        new alerts to the durable event log."""
+        free_classes = tuple(sorted(
+            {self.fleet.slices[d].cls for d in self._free}))
+        self.health.on_event(
+            self._t, self.event_index,
+            queue_depth=len(self._admission_queue),
+            backlog=self._backlog(),
+            free_classes=free_classes,
+            summary_fn=lambda: self.telemetry.summary(now=self._t))
+        for a in self.health.drain_new():
+            self.log.append_alert(a.to_record())
 
     def begin(self, events, trace_name: str = "trace") -> None:
         """Ingest all external events (appending each to the log) and
@@ -708,6 +815,8 @@ class StreamEngine:
             # the log's trace field and a replayed suffix's span tree both
             # correlate for free
             self.tracer.begin_trace(self.event_index)
+            if self.forensics is not None:
+                self.forensics.begin_event(t, self.event_index)
             self._fault("before")
             with self.tracer.span("event", kind=kind):
                 if kind == "arrive":
@@ -743,10 +852,39 @@ class StreamEngine:
                         and self._heap[0][0] == t
                         and self._heap[0][2] == "arrive"):
                     self._try_launch(horizon)
+            if self.metrics is not None:
+                self._m_events.inc()
+                self._m_queue.set(len(self._admission_queue))
+            # accounting before the health tick: a capacity sample may fire
+            # the memory watchdog, and draining in the same event keeps the
+            # alert adjacent to the sample that caused it
+            if self.accounting is not None:
+                self.accounting.tick(self._t, self.event_index, self)
+            if self.health is not None:
+                self._health_tick()
+            if self.exporter is not None:
+                self.exporter.tick(self._t, self.event_index)
             self._fault("after")
             self._maybe_snapshot()
 
         self.telemetry.on_end(self._t, self.fleet.num_devices)
+        if self.metrics is not None:
+            if self._decision_seconds > 0:
+                self.metrics.gauge("engine.decisions_per_s").set(
+                    self._decisions / self._decision_seconds)
+            for d, row in self.telemetry.per_device().items():
+                self.metrics.gauge(f"device.{d}.busy_fraction").set(
+                    row["utilization"])
+        if self.accounting is not None:
+            # one closing sample so short runs still publish gauges (and
+            # the exporter's final record below carries them)
+            self.accounting.sample(self._t, self.event_index, self)
+        if self.health is not None:
+            for a in self.health.drain_new():
+                self.log.append_alert(a.to_record())
+        if self.exporter is not None:
+            # after the end-of-run gauges so the closing record carries them
+            self.exporter.final(self._t, self.event_index)
         return StreamResult(
             trace_name=self._trace_name, policy=self.policy,
             num_devices=self.fleet.num_devices, trials=self._trials,
@@ -765,12 +903,17 @@ class StreamEngine:
 
     def save_snapshot(self):
         """Write a full-state snapshot at the current event boundary via
-        ``checkpoint.store.save_checkpoint`` (atomic publish).  Deliberately
-        NOT a span: the replay oracle compares span trees, and a durable
-        run snapshots where its uninterrupted reference does not."""
+        ``checkpoint.store.save_checkpoint`` (atomic publish).  Snapshot
+        latency is metrics-only, deliberately NOT a span: the replay oracle
+        compares span trees, and a durable run snapshots where its
+        uninterrupted reference does not."""
+        t0 = _time.perf_counter()
         arrays, meta = self._snapshot_state()
-        return save_checkpoint(self.snapshot_root, self.event_index,
-                               arrays, meta)
+        out = save_checkpoint(self.snapshot_root, self.event_index,
+                              arrays, meta)
+        if self.metrics is not None:
+            self._m_snapshot_s.observe(_time.perf_counter() - t0)
+        return out
 
     def _encode_payload(self, kind: str, payload: tuple) -> list:
         """JSON-able encoding of one heap payload (snapshot + processed-log
@@ -850,10 +993,20 @@ class StreamEngine:
             "telemetry": self.telemetry.state_dict(),
             "cp": cp_meta,
             "extra": self._snapshot_extra(),
-            # the reference's live-plane cursors: none of those planes runs
-            # here yet, and the empty entries keep the snapshot loadable by
-            # the reference
-            "obs": {"health": None, "export": None, "capacity": None},
+            # live-plane cursors (DESIGN.md §14): detector state and the
+            # export window cursor are pure functions of the event stream,
+            # so persisting them keeps a recovered run's alert/export
+            # suffix identical to the uninterrupted run.  Alert/forensics
+            # RECORDS never ride here — their durable prefix lives in the
+            # log's alerts.jsonl / the forensics JSONL stream.
+            "obs": {
+                "health": (self.health.state_dict()
+                           if self.health is not None else None),
+                "export": (self.exporter.state_dict()
+                           if self.exporter is not None else None),
+                "capacity": (self.accounting.state_dict()
+                             if self.accounting is not None else None),
+            },
         }
         return arrays, meta
 
@@ -929,3 +1082,11 @@ class StreamEngine:
         self.telemetry.load_state(meta["telemetry"])
         self.cp.load_state(arrays, meta["cp"])
         self._restore_extra(meta["extra"])
+        # tolerant restore: snapshots from health-less runs lack the key
+        obs = meta.get("obs") or {}
+        if self.health is not None and obs.get("health") is not None:
+            self.health.load_state(obs["health"])
+        if self.exporter is not None and obs.get("export") is not None:
+            self.exporter.load_state(obs["export"])
+        if self.accounting is not None and obs.get("capacity") is not None:
+            self.accounting.load_state(obs["capacity"])

@@ -25,9 +25,14 @@ event sequence.  This module makes that fold *durable* and *restartable*
   With a directory the log is write-through (flushed per append); without
   one it is in-memory only (every engine gets one by default).
 
-  The reference's third stream, the health plane's ``alerts.jsonl``,
-  arrives with the observability slice of the port; loading a log
-  directory ignores it.
+  A third, optional stream carries the health plane's **alerts**
+  (``alerts.jsonl``): structured records from
+  ``repro_torch.obs.HealthMonitor``, appended by the engine as they fire.
+  Alert *content* is a pure function of the event stream (sim-time inputs
+  only — DESIGN.md §14), so the durable prefix plus a recovered run's
+  re-emitted suffix reproduces the uninterrupted run's alert sequence
+  exactly.  The file only exists for runs with a health monitor attached;
+  its absence keeps old logs loading unchanged (no schema bump).
 
 * :class:`FaultInjector` / :class:`SimulatedCrash` — the crash-anywhere
   hook.  The engine calls ``check(point)`` at its fault points (``before`` /
@@ -148,7 +153,8 @@ class EventLog:
         self.meta: dict = {"schema_version": LOG_SCHEMA_VERSION}
         self.external: list[Event] = []
         self.processed: list[tuple[int, float, str, list]] = []
-        self._ext_f = self._proc_f = None
+        self.alerts: list[dict] = []
+        self._ext_f = self._proc_f = self._alert_f = None
         if self.path is not None:
             self.path.mkdir(parents=True, exist_ok=True)
             self._write_meta()
@@ -181,14 +187,25 @@ class EventLog:
             self._proc_f.write(json.dumps(rec) + "\n")
             self._proc_f.flush()
 
+    def append_alert(self, record: dict) -> None:
+        """Durable health-alert stream (``alerts.jsonl``), write-through
+        like the others.  The file is created lazily on the first alert so
+        health-less runs leave no empty stream behind."""
+        self.alerts.append(record)
+        if self.path is not None:
+            if self._alert_f is None:
+                self._alert_f = open(self.path / "alerts.jsonl", "a")
+            self._alert_f.write(json.dumps(record, allow_nan=False) + "\n")
+            self._alert_f.flush()
+
     def external_events(self) -> list[Event]:
         return list(self.external)
 
     def close(self) -> None:
-        for f in (self._ext_f, self._proc_f):
+        for f in (self._ext_f, self._proc_f, self._alert_f):
             if f is not None:
                 f.close()
-        self._ext_f = self._proc_f = None
+        self._ext_f = self._proc_f = self._alert_f = None
 
     @classmethod
     def load(cls, path: str | Path) -> "EventLog":
@@ -214,6 +231,11 @@ class EventLog:
             with open(proc) as f:
                 log.processed = [tuple(json.loads(line))
                                  for line in f if line.strip()]
+        al = path / "alerts.jsonl"
+        if al.exists():
+            with open(al) as f:
+                log.alerts = [json.loads(line) for line in f
+                              if line.strip()]
         return log
 
 

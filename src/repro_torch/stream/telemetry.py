@@ -372,17 +372,28 @@ class TelemetrySink:
             }
         return out
 
-    def to_json(self, path: str | Path, include_tenants: bool = True) -> Path:
-        """Write the sink payload.  ``allow_nan=False`` is load-bearing: the
-        summary must contain explicit nulls, never NaN/±inf.  (The metrics
-        and alerts ride-alongs of the reference arrive with the
-        observability slice of the port.)"""
+    def to_json(self, path: str | Path, include_tenants: bool = True,
+                metrics=None, alerts=None) -> Path:
+        """Write the sink payload; ``metrics`` (a
+        ``repro_torch.obs.MetricsRegistry``) rides along under a
+        ``"metrics"`` key in the same schema, and ``alerts`` (a list of
+        ``repro_torch.obs.Alert`` records, e.g. ``HealthMonitor.alerts`` or
+        the event log's durable ``alerts`` list) under ``"alerts"``.  Both
+        are ride-alongs: ``summary()``/``state_dict()`` stay untouched, so
+        the replay oracle's byte-identity never sees them.
+        ``allow_nan=False`` is load-bearing: the summary must contain
+        explicit nulls, never NaN/±inf."""
         payload = {"summary": self.summary()}
         if self.devices:
             payload["devices"] = {str(k): v
                                   for k, v in self.per_device().items()}
         if include_tenants:
             payload["tenants"] = {str(k): v for k, v in self.per_tenant().items()}
+        if metrics is not None:
+            payload["metrics"] = metrics.snapshot()
+        if alerts is not None:
+            payload["alerts"] = [a.to_record() if hasattr(a, "to_record")
+                                 else a for a in alerts]
         path = Path(path)
         path.write_text(json.dumps(payload, indent=2, sort_keys=True,
                                    allow_nan=False))

@@ -302,6 +302,92 @@ def test_sharded_plane_on_card_picks_the_ops_sequence(cuda, kernel):
     assert moved == ((want, 0) if kernel == "eirate_topk" else (0, want))
 
 
+def _forensic_picks(plane, tie: bool):
+    """Decisions of a plane with a forensics recorder: picks and records.
+    ``tie``: identical tenants (every decision an exact tie at first)."""
+    from repro_torch.obs import ForensicsRecorder
+    rng = np.random.default_rng(2)
+    K5 = _matern_block_chol(5, 0.2, 0.04)[0]
+    for t in range(6):
+        plane.add_tenant(K5, np.zeros(5) if tie else rng.normal(0, 0.1, 5),
+                         np.ones(5) if tie else np.linspace(0.5, 2.0, 5))
+    fr = ForensicsRecorder()
+    plane.set_forensics(fr)
+    picks = []
+    for step in range(20):
+        fr.begin_event(float(step), step)
+        pick = plane.choose_mdmt(device_speed=1.0 if step % 2 else 2.0)
+        picks.append(pick)
+        plane.record_start(pick[0])
+        plane.record_observation(pick[0], float(rng.uniform(0, 1)))
+    return picks, fr.records
+
+
+@pytest.mark.parametrize("tie", [True, False])
+@pytest.mark.parametrize("scorer", ["ops", "sharded"])
+def test_forensics_topk_head_is_the_decision_on_card(cuda, scorer, tie):
+    """Forensics on the card: the ops path takes its top-4 from the scores
+    kernel 2 computed for the decision (no extra launch), the sharded path
+    keeps kernel 3's top-k; the head is the pick, and the picks and the
+    records' candidates are the CPU plane's."""
+    cpu_picks, cpu_recs = _forensic_picks(
+        ControlPlane(scorer="ops", num_shards=4, model_capacity=32,
+                     device="cpu"), tie)
+    counts = (ei_score.launches, ei_score.topk_launches)
+    plane = ControlPlane(scorer=scorer, num_shards=4, model_capacity=32,
+                         device=cuda)
+    picks, recs = _forensic_picks(plane, tie)
+    moved = (ei_score.launches - counts[0],
+             ei_score.topk_launches - counts[1])
+    assert picks == cpu_picks
+    assert moved == ((20, 0) if scorer == "ops" else (0, 4 * 20))
+    assert [r["winner"]["model"] for r in recs] == [p[0] for p in picks]
+    assert [[c["model"] for c in r["topk"]] for r in recs] == \
+        [[c["model"] for c in r["topk"]] for r in cpu_recs]
+    if tie:
+        assert recs[0]["winner"]["model"] == 0 and recs[0]["margin"] == 0.0
+
+
+@pytest.mark.parametrize("kernel", ["eirate_topk", "eirate"])
+def test_phased_pick_equals_fused_pick_on_card(cuda, rng, kernel):
+    """readout_decide_topk_phased on the card: the fused pick and top-k,
+    the three phase spans, one readout and one score launch a shard."""
+    from repro_torch.obs import Tracer
+    from repro_torch.shardgp import ShardedScorer
+    k_obs, n, N = 256, 8192, 64
+    W = torch.from_numpy((rng.standard_normal((k_obs, n)) * 0.05)
+                         .astype(np.float32)).to(cuda)
+    alpha = torch.from_numpy(rng.standard_normal(k_obs).astype(np.float32)
+                             ).to(cuda)
+    mu0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    kd = (W * W).sum(0) + 1.0
+    member = np.zeros((N, n), bool)
+    member[np.arange(n) * N // n, np.arange(n)] = True
+    cost = rng.uniform(0.3, 3.0, n).astype(np.float32)
+    best = rng.normal(0.5, 0.5, N).astype(np.float32)
+    sel = torch.from_numpy(rng.random(n) < 0.25).to(cuda)
+    sc = ShardedScorer(4, topk=4, kernel=kernel, device=cuda)
+    sc.refresh(member, cost)
+    tr = Tracer(enabled=True)
+    sc.tracer = tr
+    v, g = sc.readout_decide_topk(W, alpha, mu0, kd, best, sel)
+    before = (gp_readout.launches, ei_score.launches, ei_score.topk_launches)
+    pv, pg = sc.readout_decide_topk_phased(W, alpha, mu0, kd, best, sel)
+    moved = (gp_readout.launches - before[0], ei_score.launches - before[1],
+             ei_score.topk_launches - before[2])
+    assert torch.equal(v, pv) and torch.equal(g, pg)
+    assert moved == ((4, 0, 4) if kernel == "eirate_topk" else (4, 4, 0))
+    assert [r["name"] for r in tr.records()] == \
+        ["readout", "score_topk", "gather_pick"]
+    mu, sd = ops.gp_readout(W, alpha, mu0, kd, emit_sd=True)
+    scores = ops.eirate(mu, sd, torch.from_numpy(best).to(cuda),
+                        torch.from_numpy(member).to(cuda),
+                        torch.from_numpy(cost).to(cuda), sel)
+    assert int(pg[0]) == int(torch.argmax(scores))
+    times = sc.phase_times(W, alpha, mu0, kd, best, sel, iters=3, warmup=1)
+    assert set(times) == {"readout_us", "score_us", "gather_us"}
+
+
 @pytest.mark.parametrize("k,n,offset,width,path", [
     (0, 50, None, None, "slab"),
     (50, 50, None, None, "slab"),
