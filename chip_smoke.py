@@ -92,6 +92,24 @@ Run from the root of a checkout on a machine with one CUDA card and
                  policy launch bare, tracer off and every plane on, and the
                  disabled per-event sites' us against the reference's 1%
                  target (reported, not gated)
+  suites         the JAX package's nine service suites, ported
+                 (repro_torch.benchmarks: control, stream, shard, devchurn,
+                 eventlog, dtrace, obs, capacity, chaos; kernels 1-4): (a)
+                 each at its smoke shapes (BENCH_FAST) on the card and on the
+                 CPU, rows equal less their host times (run.HOST_TIME_KEYS),
+                 each section's kernels launched; (b) each at the reference's
+                 full shapes on the card, BENCH_torch_<suite>.json written to
+                 a temporary directory (schema 1, the card's stamp), every
+                 row printed, the reference's gates asserted inside the
+                 sections (the compaction pause bound, the >= 90% span
+                 attribution and < 1% disabled-tracer overhead at |L| 100k,
+                 the < 1% disabled live-plane sites, the >= 80% weak-gap
+                 attribution at S = 8, chaos's regret bound and stranded
+                 devices); the sharded sections put S = 1-8 logical shards
+                 on the one card; (c) regress on (b)'s payloads: each
+                 against itself flags nothing, its slowest row doubled is
+                 flagged alone, another device kind is an environment
+                 mismatch; each section's seconds and launches
   kernels_data_plane
                  the flash attention kernels against their plain version at
                  qwen3-4b's shape (bf16 and float32), olmo-1b's MHA,
@@ -1580,6 +1598,146 @@ def observability_phase(dev, counters, DevPlaneEngine, two_class_registry,
         phase_s=time.perf_counter() - t_phase)
 
 
+# ---- the JAX package's service suites ---------------------------------------------
+
+#: the port's service suites (repro_torch.benchmarks), in the phase's order,
+#: each with the kernels it must launch on the card
+SUITE_KERNELS = {
+    "control": ("eirate", "gp_readout"),
+    "stream": ("eirate", "eirate_topk", "gp_readout"),
+    "shard": ("eirate_topk", "gp_readout"),
+    "devchurn": ("eirate_classes", "gp_readout"),
+    "eventlog": ("eirate", "gp_readout"),
+    "dtrace": ("eirate_topk", "gp_readout"),
+    "obs": ("eirate_topk", "gp_readout"),
+    "capacity": ("eirate_topk", "gp_readout"),
+    "chaos": ("eirate_classes", "gp_readout"),
+}
+
+
+def suites_phase(dev, counters):
+    """The service suites on the card: (a) each at the smoke shapes
+    (BENCH_FAST) on the card and on the CPU, rows equal less their host
+    times; (b) each at the reference's full shapes on the card, its
+    BENCH_torch_<suite>.json written to a temporary directory and every row
+    printed, the reference's gates asserted inside the sections; (c)
+    ``regress`` on (b)'s payloads: each against itself flags nothing, a
+    copy with its slowest row doubled flags that row, a copy stamped with
+    another device kind is an environment mismatch."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    from repro_torch.benchmarks import common as bench
+    from repro_torch.benchmarks import regress
+    from repro_torch.benchmarks import run as bench_run
+
+    mods = {s: importlib.import_module(f"repro_torch.benchmarks.{bench_run.MODULES[s]}")
+            for s in SUITE_KERNELS}
+    t_phase = time.perf_counter()
+
+    def launched(section, launches, what):
+        missing = [k for k in SUITE_KERNELS[section] if launches[k] == 0]
+        check(not missing, f"suites {what}: {section} launched none of {missing} "
+              f"(launches {launches})")
+
+    # (a) smoke shapes, card against CPU
+    smoke = {}
+    bench.set_fast(True)
+    for section, mod in mods.items():
+        reset(counters)
+        t0 = time.perf_counter()
+        card = bench_run.comparable(section, bench.capture_rows(mod.main, device=dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = read(counters)
+        t0 = time.perf_counter()
+        cpu = bench_run.comparable(section, bench.capture_rows(mod.main, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        check(card == cpu, f"suites (a): {section}'s rows on the card {card} "
+              f"differ from the CPU's {cpu}")
+        launched(section, launches, "(a)")
+        smoke[section] = dict(rows=len(card), card_s=card_s, cpu_s=cpu_s,
+                              launches=launches)
+
+    # (b) the reference's full shapes on the card
+    full = {}
+    bench.set_fast(False)
+    out_dir = Path(tempfile.mkdtemp(prefix="bench_torch_"))
+    try:
+        for section, mod in mods.items():
+            reset(counters)
+            bench.begin_suite(bench_run.SUITE_NAMES[section])
+            t0 = time.perf_counter()
+            try:
+                rows = bench.capture_rows(mod.main, device=dev)
+            except BaseException:
+                bench.abort_suite()
+                raise
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            path = bench.end_suite(out_dir)
+            launches = read(counters)
+            launched(section, launches, "(b)")
+            payload = json.loads(path.read_text())
+            env = payload["environment"]
+            check(payload["schema_version"] == 1 and env["fast"] is False
+                  and env["device_kind"] == torch.cuda.get_device_name(0)
+                  and env["device_count"] == torch.cuda.device_count()
+                  and env["power_limit"] != "none",
+                  f"suites (b): {path.name}'s stamp {env}")
+            full[section] = dict(
+                suite=payload["suite"], seconds=seconds, launches=launches,
+                rows=[dict(name=n, us_per_call=us, derived=dict(d))
+                      for n, us, d in rows])
+
+        # (c) regress on (b)'s payloads
+        verdicts = {}
+        for path in sorted(out_dir.glob("BENCH_torch_*.json")):
+            payload = regress.load_suite(path)
+            same = regress.compare_suites(payload, payload, threshold=1.5,
+                                          min_us=1.0, allow_legacy=False)
+            slowest = max(payload["rows"],
+                          key=lambda n: payload["rows"][n]["us_per_call"])
+            doubled = json.loads(path.read_text())
+            doubled["rows"][slowest]["us_per_call"] *= 2
+            flagged = regress.compare_suites(payload, doubled, threshold=1.5,
+                                             min_us=1.0, allow_legacy=False)
+            other = json.loads(path.read_text())
+            other["environment"]["device_kind"] = "another card"
+            moved = regress.compare_suites(payload, other, threshold=1.5,
+                                           min_us=1.0, allow_legacy=False)
+            regressed = [r["name"] for r in flagged["rows"]
+                         if r["status"] == "regression"]
+            check(same["status"] == "ok"
+                  and all(r["status"] == "ok" for r in same["rows"])
+                  and flagged["status"] == "regression" and regressed == [slowest]
+                  and moved["status"] == "skipped"
+                  and "device_kind" in moved["reason"],
+                  f"suites (c): regress on {path.name}: itself {same['status']}, "
+                  f"{slowest} doubled flagged {regressed}, another card "
+                  f"{moved['status']}")
+            verdicts[payload["suite"]] = dict(doubled_row=slowest,
+                                              flagged=regressed)
+        report = out_dir / "regress_report.json"
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc_same = regress.main(["--check", "--baseline-dir", str(out_dir),
+                                    "--fresh-dir", str(out_dir),
+                                    "--report", str(report)])
+        check(rc_same == 0, f"suites (c): regress --check of a run against itself "
+              f"exited {rc_same}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(phase="suites", card=card_name_and_power(),
+                smoke=smoke, full=full, regress=verdicts,
+                launches={k: sum(r["launches"][k] for r in full.values())
+                          for k in counters},
+                smoke_launches={k: sum(r["launches"][k] for r in smoke.values())
+                                for k in counters},
+                phase_s=time.perf_counter() - t_phase)
+
+
 # ---- the data plane ------------------------------------------------------------
 
 def auto_ms(fn, budget_ms: float = 150.0, max_iters: int = 50) -> float:
@@ -2966,6 +3124,9 @@ def main() -> int:
                                         ShardedScorer)
     emit(observability)
 
+    suites = suites_phase(dev, counters)
+    emit(suites)
+
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_cases = [flash_case(*c, gen, dev, flash_mod, ref) for c in FLASH_CASES]
@@ -3047,6 +3208,9 @@ def main() -> int:
     # the observability phase's (every plane on; kernels 1-4)
     for name, n in observability["launches"].items():
         extra[name]["observability_launches"] = n
+    # the service suites' at full shapes (kernels 1-4)
+    for name, n in suites["launches"].items():
+        extra[name]["suites_launches"] = n
     for name in ("eirate", "eirate_topk", "eirate_classes"):
         # their "operations" floor is FP64: erf or erfc, and exp, in double,
         # as many as the inputs' terms execute

@@ -1,21 +1,25 @@
-"""Shared utilities of the port's paper-figure drivers: CSV rows, engine
-flags, the suite record and its environment stamp.
+"""Shared utilities of the port's benchmark sections: CSV rows, engine
+flags, timing, the suite record and its environment stamp.
 
-Every driver prints rows:  name,us_per_call,derived
-(one logical row per paper-figure entry; ``derived`` packs the figure of
-merit as ``key=value`` pairs joined by ``;``), in the JAX drivers' format,
-so the two outputs can be diffed line by line.
+Every section prints rows:  name,us_per_call,derived
+(one logical row per table entry; ``derived`` packs the figure of merit as
+``key=value`` pairs joined by ``;``), in the JAX package's format, so the
+two outputs can be diffed line by line.
 
-The drivers accept ``--engine {event,batched}`` as the JAX drivers do.
-``event`` is the host event loop of ``repro_torch.core.simulate``.
-``batched`` raises ``NotImplementedError``: the batched sweep engine is not
-ported yet (ROADMAP.md section 1, item 7).
+The paper-figure drivers accept ``--engine {event,batched}`` as the JAX
+drivers do.  ``event`` is the host event loop of
+``repro_torch.core.simulate``.  ``batched`` raises ``NotImplementedError``:
+the batched sweep engine is not ported yet (ROADMAP.md section 1, item 8).
+A figure's ``us_per_call`` is ``SimResult.decision_seconds`` per decision.
+Each decision's clock stops once its pick is a Python int on the host, a
+read that waits for the card, so the time covers the decision's device
+work; :func:`episode` ends each episode in a ``torch.cuda.synchronize()``,
+so no episode's device work runs on into the next one's clock.
 
-``us_per_call`` is ``SimResult.decision_seconds`` per decision.  Each
-decision's clock stops once its pick is a Python int on the host, a read
-that waits for the card, so the time covers the decision's device work;
-:func:`episode` ends each episode in a ``torch.cuda.synchronize()``, so no
-episode's device work runs on into the next one's clock.
+The service suites time with :func:`time_us` and :func:`timed`, which wait
+for the card (``obs.profile.wait``): ``sync=True`` after every call, else
+once after the loop.  Each section reads :data:`FAST` when it runs, so
+:func:`set_fast` takes effect whenever it is called.
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ import json
 import os
 import shutil
 import subprocess
+import sys
+import time
 from pathlib import Path
 
 import torch
 
 from ..core import simulate
 from ..device import resolve
+from ..obs.profile import time_us_blocked, wait
 
 FAST = os.environ.get("BENCH_FAST", "0") == "1"
 
@@ -52,7 +59,7 @@ def require_event_engine(engine: str) -> None:
     if engine != "event":
         raise NotImplementedError(
             "--engine batched needs the batched sweep engine, which is not "
-            "ported yet (ROADMAP.md section 1, item 7); use --engine event")
+            "ported yet (ROADMAP.md section 1, item 8); use --engine event")
 
 
 def episode(problem, policy: str, num_devices: int, seed: int, device=None):
@@ -195,9 +202,126 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def parse_rows(text: str) -> list[tuple[str, float, list]]:
+    """The ``name,us_per_call,derived`` rows of ``text``, each as
+    ``(name, us_per_call, [(key, value), ...])`` in the printed order.  A
+    value may hold ``;`` itself (``capacity_shard_skew``'s list of
+    per-shard times): a piece without ``=`` belongs to the value before."""
+    rows = []
+    for line in text.strip().splitlines():
+        name, us, derived = line.split(",", 2)
+        pairs = []
+        for piece in derived.split(";") if derived else ():
+            if "=" in piece:
+                pairs.append(tuple(piece.split("=", 1)))
+            else:
+                pairs[-1] = (pairs[-1][0], f"{pairs[-1][1]};{piece}")
+        rows.append((name, float(us), pairs))
+    return rows
+
+
+def capture_rows(fn, *args, **kw) -> list[tuple[str, float, list]]:
+    """Runs ``fn(*args, **kw)`` with its standard output captured and
+    returns the rows it printed (:func:`parse_rows`)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args, **kw)
+    return parse_rows(buf.getvalue())
+
+
 def emit(name: str, us_per_call: float, **derived) -> None:
     packed = ";".join(f"{k}={v}" for k, v in derived.items())
     print(f"{name},{us_per_call:.1f},{packed}")
     if _suite_rows is not None:
         _suite_rows[name] = {"us_per_call": round(us_per_call, 1),
                              **{k: str(v) for k, v in derived.items()}}
+
+
+def time_us(fn, *args, iters: int = 20, warmup: int = 3, sync: bool = False,
+            **kw) -> float:
+    """Mean wall time of ``fn(*args, **kw)`` in µs, after ``warmup`` calls.
+
+    By default the loop waits for the card once, after its last call: the
+    steady-state throughput of an asynchronous pipeline.  ``sync=True``
+    waits after every call (``obs.profile.time_us_blocked``), which is what
+    a latency needs: each call's time includes its device work.  Either way
+    the warm-up calls (lazy kernel builds, first library calls) finish
+    before the clock starts."""
+    if sync:
+        return time_us_blocked(lambda: fn(*args, **kw), iters=iters,
+                               warmup=warmup)
+    out = None
+    for _ in range(warmup):
+        out = fn(*args, **kw)
+    wait(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args, **kw)
+    wait(out)
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def timed(fn, *args, **kw):
+    """One call that waits for the card: ``(seconds, result)``.  For
+    one-shot costs (a compaction pass, a whole engine run) where a loop
+    would mutate state it should not."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    wait(out)
+    return time.perf_counter() - t0, out
+
+
+def run_standalone(suite: str, main, description: str) -> None:
+    """``python -m repro_torch.benchmarks.<section> [--smoke]``: run one
+    section on the card and write its ``BENCH_<suite>.json``."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--smoke", action="store_true",
+                   help="toy shapes (same effect as BENCH_FAST=1)")
+    if p.parse_args().smoke:
+        set_fast(True)
+    begin_suite(suite)
+    try:
+        main()
+    except BaseException:
+        abort_suite()
+        raise
+    path = end_suite()
+    if path is not None:
+        print(f"# wrote {path}", file=sys.stderr)
+
+
+#: rounds over which :func:`interleaved` splits its loops
+ROUNDS = 5
+
+
+def interleaved(loops: dict, rounds: int = ROUNDS) -> dict:
+    """Mean µs a call of each loop, the loops' calls interleaved in rounds.
+
+    ``loops`` maps a name to ``(measure, iters)``: ``measure(k)`` times k
+    calls and returns µs a call (a number, or a dict of numbers).  Each
+    loop's ``iters`` calls are split over ``rounds`` rounds, and inside a
+    round the loops run one after another, so timings that a bar holds
+    against each other are taken under the same conditions of the host.
+    The card's host runs the same Python up to 2x slower for stretches of
+    tens to hundreds of milliseconds (PERF.md, PR 23, measured in a process
+    that had not imported torch): loops run one after the other, as the
+    reference runs them, would let one stretch decide such a bar.  The
+    calls, and so each mean's expected value, are the same."""
+    sums: dict = {}
+    for r in range(rounds):
+        for name, (measure, iters) in loops.items():
+            k = iters // rounds + (r < iters % rounds)
+            if k == 0:
+                continue
+            got = measure(k)
+            if isinstance(got, dict):
+                acc = sums.setdefault(name, dict.fromkeys(got, 0.0))
+                for key, us in got.items():
+                    acc[key] += us * k
+            else:
+                sums[name] = sums.get(name, 0.0) + got * k
+    return {name: ({key: v / loops[name][1] for key, v in acc.items()}
+                   if isinstance(acc, dict) else acc / loops[name][1])
+            for name, acc in sums.items()}

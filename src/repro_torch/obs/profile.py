@@ -116,7 +116,9 @@ def capture_call(fn, logdir: str | Path, *, iters: int = 1,
             "windows": window, "device_events": win.device_events}
 
 
-def _wait(out) -> None:
+def wait(out) -> None:
+    """Wait for the cards that hold ``out``'s tensors, and for the current
+    card once CUDA is in use (work whose result is a host value)."""
     block_ready(out)
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -127,10 +129,10 @@ def time_us_blocked(fn, *, iters: int = 10, warmup: int = 2) -> float:
     the cards that hold its outputs (and the current card): asynchronous
     launches must not let timings overlap."""
     for _ in range(warmup):
-        _wait(fn())
+        wait(fn())
     t0 = _time.perf_counter()
     for _ in range(iters):
-        _wait(fn())
+        wait(fn())
     return (_time.perf_counter() - t0) / iters * 1e6
 
 
@@ -171,6 +173,6 @@ def dispatch_overhead_us(devices, *, iters: int = 50,
     return time_us_blocked(loop, iters=iters, warmup=warmup)
 
 
-__all__ = ["capture", "capture_call", "profiler_available", "time_us_blocked",
+__all__ = ["capture", "capture_call", "profiler_available", "time_us_blocked", "wait",
            "per_shard_skew", "dispatch_overhead_us", "Window",
            "PROFILE_SCHEMA_VERSION", "PAD_S", "ATTEMPTS"]

@@ -282,10 +282,12 @@ class ShardedScorer:
         shard runs the GP readout kernel on its column slice of W (a strided
         view where W lies on the shard's device, no copy), then scores and
         reduces it.  The length of ``mu0``, ``kdiag`` and ``selected`` must
-        be the refreshed capacity (pad upstream)."""
-        W, alpha, mu0s, kds, rest = self._readout_inputs(
-            W, alpha, mu0, kdiag, best, selected, speed)
-        posts = self._readout_phase(W, alpha, mu0s, kds)
+        be the refreshed capacity (pad upstream).  Every input is on its
+        device before the first launch: a host upload after it would wait
+        for the card."""
+        ins = self._readout_inputs(W, alpha, mu0, kdiag)
+        rest = self._score_inputs(best, selected, speed)
+        posts = self._readout_phase(*ins)
         return self._gather_pick(self._score_phase(posts, *rest), self.topk)
 
     def readout_decide_topk_phased(self, W, alpha, mu0, kdiag, best,
@@ -297,15 +299,16 @@ class ShardedScorer:
         closed under a ``tracer.span`` with a synchronize (when the tracer
         is enabled), so the tracer attributes the decision's wall time
         phase by phase.  The pick is :meth:`readout_decide_topk`'s: both
-        are the same three phases, this one with the syncs between them."""
+        are the same three phases, this one with the syncs between them.
+        Each phase's span also holds the per-shard slicing of its own
+        inputs, which the reference's phase programs do inside
+        ``shard_map``."""
         tr = self.tracer
-        W, alpha, mu0s, kds, rest = self._readout_inputs(
-            W, alpha, mu0, kdiag, best, selected, speed)
         with tr.span("readout", shards=self.num_shards):
-            posts = self._readout_phase(W, alpha, mu0s, kds)
+            posts = self._readout_phase(*self._readout_inputs(W, alpha, mu0, kdiag))
             tr.sync([t for p in posts for t in p])
         with tr.span("score_topk", shards=self.num_shards, k=self.topk):
-            cands = self._score_phase(posts, *rest)
+            cands = self._score_phase(posts, *self._score_inputs(best, selected, speed))
             tr.sync([t for c in cands for t in c])
         with tr.span("gather_pick", shards=self.num_shards, k=self.topk):
             return tr.sync(self._gather_pick(cands, self.topk))
@@ -318,13 +321,13 @@ class ShardedScorer:
         call) on inputs the phase before computed once, outside the timed
         region, so no phase hides inside another's launches."""
         from ..obs.profile import time_us_blocked
-        W, alpha, mu0s, kds, rest = self._readout_inputs(
-            W, alpha, mu0, kdiag, best, selected, speed)
-        posts = self._readout_phase(W, alpha, mu0s, kds)
+        W, alphas, mu0s, kds = self._readout_inputs(W, alpha, mu0, kdiag)
+        rest = self._score_inputs(best, selected, speed)
+        posts = self._readout_phase(W, alphas, mu0s, kds)
         cands = self._score_phase(posts, *rest)
         return {
             "readout_us": time_us_blocked(
-                lambda: [t for p in self._readout_phase(W, alpha, mu0s, kds)
+                lambda: [t for p in self._readout_phase(W, alphas, mu0s, kds)
                          for t in p], iters=iters, warmup=warmup),
             "score_us": time_us_blocked(
                 lambda: [t for c in self._score_phase(posts, *rest)
@@ -334,21 +337,28 @@ class ShardedScorer:
                 iters=iters, warmup=warmup),
         }
 
-    def _readout_inputs(self, W, alpha, mu0, kdiag, best, selected, speed):
-        """The readout pipeline's inputs, one slice per shard: (W, alpha,
-        mu0 slices, kdiag slices, (best, costs, selected) per shard)."""
+    def _readout_inputs(self, W, alpha, mu0, kdiag):
+        """The readout phase's inputs: (W, alpha per shard, mu0 slices,
+        kdiag slices).  alpha is uploaded once per device, as
+        :meth:`_replicated` does."""
         self._require_refresh()
         if W.shape[1] != self._cap:
             raise ValueError(f"W has {W.shape[1]} columns, the scorer's "
                              f"capacity is {self._cap}")
-        return (W, alpha, self._per_shard(mu0), self._per_shard(kdiag),
-                (self._replicated(best), self._costs(speed),
-                 self._per_shard(torch.as_tensor(selected))))
+        full = {dev: alpha.to(dev) for dev in set(self.mesh)}
+        return (W, [full[dev] for dev in self.mesh], self._per_shard(mu0),
+                self._per_shard(kdiag))
 
-    def _readout_phase(self, W, alpha, mu0s, kds):
+    def _score_inputs(self, best, selected, speed):
+        """The score phase's inputs past the posterior: (best, costs,
+        selected), one per shard."""
+        return (self._replicated(best), self._costs(speed),
+                self._per_shard(torch.as_tensor(selected)))
+
+    def _readout_phase(self, W, alphas, mu0s, kds):
         """(mu, sd) of each shard's slice: the GP readout kernel on its
         column slice of W, on the shard's device."""
-        return [ops.gp_readout(W[:, self._span(s)].to(dev), alpha.to(dev),
+        return [ops.gp_readout(W[:, self._span(s)].to(dev), alphas[s],
                                mu0s[s], kds[s], emit_sd=True)
                 for s, dev in enumerate(self.mesh)]
 

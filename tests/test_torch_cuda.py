@@ -32,6 +32,7 @@ tests count both.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -900,3 +901,50 @@ def test_service_decisions_on_card_equal_cpu(cuda):
             if str(dev) == "cuda":
                 assert gp_readout.launches - before == len(svc.trials)
         assert runs["cuda"] == runs["cpu"]
+
+
+def test_bench_time_us_waits_for_the_card(cuda):
+    """``benchmarks.common.time_us`` waits for the card: with ``sync=True``
+    after every call, so each call's time covers the kernel it enqueued;
+    without, once after the loop.  Either way every kernel enqueued inside
+    has finished when it returns."""
+    from repro_torch.benchmarks.common import time_us, timed
+
+    cycles = 20_000_000              # about 10 ms of a spinning kernel
+    done = []
+
+    def enqueue():
+        torch.cuda._sleep(cycles)
+        ev = torch.cuda.Event()
+        ev.record()
+        done.append(ev)
+
+    enqueue()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    enqueue()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    for sync in (True, False):
+        done.clear()
+        us = time_us(enqueue, iters=4, warmup=1, sync=sync)
+        assert len(done) == 5 and all(ev.query() for ev in done)
+        assert us >= 0.5 * one_s * 1e6, (sync, us, one_s)
+    done.clear()
+    seconds, _ = timed(enqueue)
+    assert done[0].query() and seconds >= 0.5 * one_s
+
+
+def test_bench_section_on_card_equals_cpu(cuda, monkeypatch):
+    """One smoke section (``stream``: kernels 1-3 through the streaming
+    engine and the three scorers) gives the same rows on the card as on the
+    CPU, less its host times."""
+    from repro_torch.benchmarks import common, run, stream_churn
+
+    monkeypatch.setattr(common, "FAST", True)
+    counts = (ei_score.launches, ei_score.topk_launches, gp_readout.launches)
+    card = run.comparable("stream", common.capture_rows(stream_churn.main, device=cuda))
+    after = (ei_score.launches, ei_score.topk_launches, gp_readout.launches)
+    cpu = run.comparable("stream", common.capture_rows(stream_churn.main, device="cpu"))
+    assert card == cpu
+    assert all(a > b for a, b in zip(after, counts)), (counts, after)

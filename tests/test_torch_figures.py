@@ -92,7 +92,7 @@ PORT_MAINS = {"fig2": T2.main, "fig3": T3.main, "fig4": T4.main, "fig5": T5.main
 @pytest.mark.parametrize("fig", list(PORT_MAINS))
 def test_batched_engine_raises(fig, monkeypatch):
     monkeypatch.setattr(sys, "argv", [fig, "--engine", "batched", "--seeds", "1"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         PORT_MAINS[fig](device="cpu")
 
 
