@@ -150,6 +150,31 @@ Run from the root of a checkout on a machine with one CUDA card and
                  in bf16 its drift recorded at 2, 1/4, 1/2 and all of the
                  layers, and the card's bf16 prefill + decode held against
                  the CPU's at 2 layers
+  model_families the hybrid, vlm, audio and moe families at full width,
+                 random weights from a seed, bf16, B 4 x S 2,048, on the
+                 kernel route: zamba2-2.7b (54 Mamba2 layers in 9 groups of
+                 6 + the shared attention block: 54 SSD calls and 9 flash
+                 calls a forward), paligemma-3b (256 patches of width 1,152
+                 + 1,792 tokens, loss over the text; 18 flash calls at D 256
+                 with one KV head), musicgen-medium (frames of width 1,536,
+                 4 heads; 48 flash calls at D 64), qwen3-moe-235b-a22b (4 of
+                 94 layers; 64 groups of 128 tokens, capacity 16) and
+                 arctic-480b (2 of 35 layers, bf16 parameters; capacity 4,
+                 the dense residual MLP): each line names the cuts with
+                 their bytes, the launches of each forward (exactly the
+                 flash and SSD calls above, no other kernel), each kernel
+                 held against its plain version on the inputs the model
+                 first gives it (zamba2: the first SSD layer and the shared
+                 block's first call), a float32 twin card against CPU
+                 (zamba2 one group + the shared block, paligemma and
+                 musicgen 2 layers, qwen3-moe 1 layer with its expert ids
+                 and keep masks equal; arctic's smoke config); then
+                 StaticBatchEngine on zamba2 and qwen3-moe (the moe's waves
+                 whole groups), decode after prefill held in float32 for
+                 zamba2, paligemma, musicgen and qwen3-moe (the moe with one
+                 group a pass and a slot for every token), musicgen
+                 decoding 32 frames, and paligemma through the ported
+                 serve_decode example
   train_pieces   one AdamW step (repro_torch.train) on mamba2-1.3b's full
                  parameter tree (bf16 params and gradients, float32
                  moments) with seeded gradients that clip, held against a
@@ -192,11 +217,13 @@ Then a line listing each kernel, the card's name and power limit as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
 import heapq
 import json
+import math
 import os
 import re
 import shutil
@@ -314,6 +341,15 @@ FLASH_CASES = (                # name, B, S, Hq, Hkv, D, window, dtype
     ("olmo_1b_mha", 2, 2048, 16, 16, 128, None, torch.bfloat16),
     ("h2o_danube_3_4b_window", 1, 8192, 32, 8, 120, 4096, torch.bfloat16),
     ("ragged_s1000", 2, 1000, 32, 8, 128, None, torch.bfloat16),
+    # the other families' shapes: zamba2's shared block (D 80, padded to
+    # the 128 template), paligemma (D 256, one KV head), musicgen (D 64),
+    # qwen3-moe (GQA 16)
+    ("zamba2_2p7b_bf16", 2, 2048, 32, 32, 80, None, torch.bfloat16),
+    ("zamba2_2p7b_f32", 2, 2048, 32, 32, 80, None, torch.float32),
+    ("paligemma_3b_bf16", 2, 2048, 8, 1, 256, None, torch.bfloat16),
+    ("paligemma_3b_f32", 2, 2048, 8, 1, 256, None, torch.float32),
+    ("musicgen_medium_bf16", 2, 2048, 24, 24, 64, None, torch.bfloat16),
+    ("qwen3_moe_bf16", 2, 2048, 64, 4, 128, None, torch.bfloat16),
 )
 SSD_CASES = (                  # name, B, S, H, P, N, chunk, dtype of x, b, c
     ("mamba2_1p3b", 2, 2048, 64, 64, 128, 256, torch.float32),
@@ -336,6 +372,25 @@ SERVE_PROMPTS = (100, 400, 700, 1000)
 SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 32, 2, 2048
 CHECK_SEQ = 513                # decode after prefill: S - 1 = 512 prefilled
 DECODE_TOL = 3e-2              # tests/test_models.py's
+# model_families: (arch, cut, float32 twin layers) -- full width; qwen3-moe
+# (2.49e9 parameters a layer, 10 GB in float32) cut to 4 of 94 layers;
+# arctic (13.6e9 a layer: 54 GB in float32, more than the card with its bf16
+# expert casts) cut to 2 of 35 layers of bf16 parameters, and twinned on its
+# smoke config (no host holds a full-width layer's twin beside the card's)
+FAMILY_ARCHS = (
+    ("zamba2-2.7b", None, 6),                 # the twin: one group + shared block
+    ("paligemma-3b", None, 2),
+    ("musicgen-medium", None, 2),
+    ("qwen3-moe-235b-a22b", dict(num_layers=4), 1),
+    ("arctic-480b", dict(num_layers=2, param_dtype=torch.bfloat16), None),
+)
+TWIN_SMOKE_SEQ = 64            # the smoke twin: B 2 x 64 = 4 groups of 32
+# serving: zamba2 the engine's default prompts; the moe's each wave's B plen
+# a multiple of its 128-token group (waves of 2 x 384 and 2 x 1,024)
+FAMILY_SERVE = {"zamba2-2.7b": SERVE_PROMPTS, "qwen3-moe-235b-a22b": (128, 384, 640, 1024)}
+FAMILY_CHECK = ("zamba2-2.7b", "paligemma-3b", "musicgen-medium", "qwen3-moe-235b-a22b")
+FRAMES_PROMPT = 512            # musicgen's prefill, frames a sequence
+EXAMPLE_BATCH, EXAMPLE_PROMPT = 4, 256   # paligemma's serve_decode run
 
 # figures: the port's paper-figure drivers, seeds per figure (Fig. 5:
 # repeats of the 50 x 50 Matern problem at each M of FIG5_DEVICES); the CPU
@@ -1938,11 +1993,19 @@ def tensors_to(tree, device):
 
 
 def first_layers(params, n: int):
-    """The parameters with the first ``n`` layers of the stacked blocks
-    (views, no copy)."""
+    """The parameters with the first ``n`` entries of the stacked blocks'
+    leading axis (layers; a hybrid's groups) (views, no copy)."""
     from repro_torch.models.spec import tree_map
     return {**params, "blocks": tree_map(lambda a: a[:n], params["blocks"],
                                          lambda x: isinstance(x, torch.Tensor))}
+
+
+def cut_depth(params, cfg, layers: int):
+    """(params, cfg) of the first ``layers`` layers: a hybrid's first
+    ``layers`` / k groups (``layers`` a multiple of k) and its shared
+    block."""
+    n = layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else layers
+    return first_layers(params, n), dataclasses.replace(cfg, num_layers=layers)
 
 
 def kernel_route(cfg):
@@ -1952,172 +2015,326 @@ def kernel_route(cfg):
     return dataclasses.replace(cfg, use_pallas=True, ssm=ssm)
 
 
-def model_forward_phase(arch, seed, dev, counters):
-    """One model at full width and depth on the card: loss and last logits
-    through the kernel path, launches per forward, the kernel on layer 0's
-    own inputs, and a CPU twin of the first layers."""
-    from repro_torch.configs import get_config
+def expected_calls(cfg) -> dict:
+    """Kernel calls of one full-sequence forward on the kernel route: a
+    flash call per attention layer (a hybrid's shared block once a group)
+    and an SSD call per Mamba2 layer, no other kernel."""
+    return {"flash_attention": cfg.num_attn_layers,
+            "ssd": cfg.num_layers if cfg.ssm is not None else 0}
+
+
+def model_batch(cfg, B: int, S: int, rng, dev) -> dict:
+    """``data.random_batch`` of S positions drawn from ``rng``, on ``dev``."""
+    from repro_torch.data import random_batch
+    return {k: torch.from_numpy(v).to(dev) for k, v in random_batch(cfg, B, S, rng).items()}
+
+
+def positions_of(batch: dict) -> int:
+    """The positions a batch fills: its sequence input's, and the image's
+    patches before them."""
+    from repro_torch.data import seq_key
+    return batch[seq_key(batch)].shape[1] + (
+        batch["patches"].shape[1] if "patches" in batch else 0)
+
+
+def head_of(batch: dict, B: int, S: int) -> dict:
+    """The first B sequences, the first S entries of the sequence input
+    (tokens or frames) and its labels; an image's patches whole."""
+    from repro_torch.data import seq_key
+    key = seq_key(batch)
+    return {k: (v[:B, :S] if k in (key, "labels") else v[:B]) for k, v in batch.items()}
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def by_route(flash_mod, ssd_mod) -> dict:
+    return dict(flash=dict(flash_mod.launches_by_route),
+                ssd=dict(ssd_mod.launches_by_route))
+
+
+def want_routes(calls: dict, dtype) -> dict:
+    """Launches by route for ``calls`` in ``dtype``: bf16 on wgmma and the
+    tensor-core SSD route, float32 on both tf32x3 routes."""
+    f32 = dtype == torch.float32
+    n_flash, n_ssd = calls["flash_attention"], calls["ssd"]
+    return dict(flash={"wgmma": 0 if f32 else n_flash, "tf32x3": n_flash if f32 else 0},
+                ssd={"tensor_cores": 0 if f32 else n_ssd, "tf32x3": n_ssd if f32 else 0})
+
+
+def reset_all(counters, flash_mod, ssd_mod) -> None:
+    reset(counters)
+    flash_mod.reset_launches()
+    ssd_mod.reset_launches()
+
+
+def held_calls(name, counters, calls, dtype, flash_mod, ssd_mod) -> tuple[dict, dict]:
+    """The launches since the counters' reset: exactly ``calls`` (no other
+    kernel), each on its dtype's route; (launches, by route)."""
+    launches = read(counters)
+    want = {k: calls.get(k, 0) for k in launches}
+    routes = by_route(flash_mod, ssd_mod)
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    check(routes == want_routes(calls, dtype),
+          f"{name}: calls by route {routes}, expected {want_routes(calls, dtype)}")
+    return launches, routes
+
+
+@contextlib.contextmanager
+def routes_recorded(log: list):
+    """Records every MoE routing while it is open: each group's expert ids
+    and keep masks, on the host."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod._route
+
+    def recording(w, x, cfg):
+        gates, ids, aux = route(w, x, cfg)
+        _, keep = moe_mod.dispatch(ids, cfg, cfg.capacity)
+        log.append((ids.cpu(), keep.cpu()))
+        return gates, ids, aux
+    moe_mod._route = recording
+    try:
+        yield log
+    finally:
+        moe_mod._route = route
+
+
+def layer0_cases(arch, params, batch, cfg, flash_mod, ssd_mod, ref) -> dict:
+    """Each kernel of the model held against its plain version on the
+    inputs the model first gives it: the first Mamba2 layer's SSD inputs;
+    the first attention layer's q, k, v (a hybrid's: the shared block's
+    first call, after the first group's Mamba2 layers)."""
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.model import _ssm_block, embed_inputs
+    from repro_torch.models.spec import tree_map
+    from repro_torch.models.ssm import mix_inputs
+
+    def index(tree, i):
+        return tree_map(lambda a: a[i], tree, lambda t: isinstance(t, torch.Tensor))
+
+    cases = {}
+    x, positions = embed_inputs(params, batch, cfg)
+    first = index(params["blocks"], 0)              # a layer; a hybrid's group
+    if cfg.ssm is not None:
+        group = first if cfg.family == "hybrid" else None
+        layer = index(group, 0) if group is not None else first
+        h = apply_norm(cfg.norm, layer["norm"], x)
+        (xh, dt, la, bm, cm, Q), _ = mix_inputs(layer["ssm"], h, cfg.ssm)
+        cases["ssd"] = ssd_check(f"layer0_{arch}", xh, dt, la, bm, cm, Q, ssd_mod, ref)
+    if not cfg.uses_attention:
+        return cases
+    if cfg.family == "hybrid":
+        for i in range(cfg.hybrid_attn_every):
+            x = _ssm_block(index(group, i), x, cfg)
+        block, name = params["shared_attn"], f"shared_block_{arch}"
+    else:
+        block, name = first, f"layer0_{arch}"
+    h = apply_norm(cfg.norm, block.get("attn_norm") or None, x)
+    q, k, v = _project_qkv(block["attn"], h, cfg.attn_cfg, positions)
+    cases["flash_attention"] = flash_check(name, q, k, v, cfg.sliding_window,
+                                           flash_mod, ref)
+    return cases
+
+
+def draw_params(cfg, seed: int, dev):
+    """``init_params`` with every leaf drawn in the config's
+    ``param_dtype``: ``init_from_specs`` gives a spec's own dtype (float32)
+    precedence over the field, in the reference as in the port, and draws
+    in float32 before a cast.  A cut to bf16 parameters fills each leaf in
+    bf16 directly, in ``init_from_specs``' order and distributions, so no
+    leaf ever needs its float32 draw whole (arctic's stacked experts would
+    take 36 GB more)."""
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.spec import tree_leaves, tree_map
+    if cfg.param_dtype == torch.float32:
+        return init_params(cfg, seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def fill(s):
+        t = torch.empty(s.shape, dtype=cfg.param_dtype, device=dev)
+        if s.init in ("zeros", "ones"):
+            return t.fill_(float(s.init == "ones"))
+        fan_in = s.shape[0] if len(s.shape) == 1 else math.prod(s.shape[:-1])
+        std = s.init_scale if s.init == "normal" else 1.0 / math.sqrt(max(fan_in, 1))
+        return t.normal_(0.0, std, generator=gen)
+
+    specs = model_specs(cfg)
+    filled = {id(s): fill(s) for s in tree_leaves(specs)}
+    return tree_map(lambda s: filled[id(s)], specs)
+
+
+def param_bytes(cfg) -> int:
+    return cfg.param_count() * torch.empty((), dtype=cfg.param_dtype).element_size()
+
+
+def cuts_of(full, cfg) -> list[str]:
+    """What ``cfg`` cut of the published ``full``, each with its parameter
+    bytes before and after."""
+    cuts = []
+    if cfg.num_layers != full.num_layers:
+        cuts.append(f"num_layers {full.num_layers} -> {cfg.num_layers}")
+    if cfg.param_dtype != full.param_dtype:
+        cuts.append(f"param_dtype {dtype_name(full.param_dtype)} -> "
+                    f"{dtype_name(cfg.param_dtype)} (the config's own field; every "
+                    "leaf drawn in it)")
+    if cuts:
+        cuts.append(f"{full.param_count():,} parameters, {param_bytes(full) / 1e9:.1f} GB "
+                    f"-> {cfg.param_count():,}, {param_bytes(cfg) / 1e9:.1f} GB")
+    return cuts
+
+
+def model_forward_phase(arch, seed, dev, counters, cut=None, twin_layers=TWIN_LAYERS,
+                        phase="model_forward"):
+    """One model at full width on the card (depth, or parameter dtype, cut
+    as ``cut`` says): loss and last logits through the kernel path, the
+    launches of each forward, each kernel on the inputs the model first
+    gives it, and a float32 twin of the first ``twin_layers`` layers, card
+    against CPU (None: the smoke config's twin instead); a moe's twin also
+    routes every token to the same experts, kept and dropped alike."""
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.models import forward_logits_last, forward_loss, init_params
-    from repro_torch.models.attention import _project_qkv
-    from repro_torch.models.layers import apply_norm, embed_lookup
-    from repro_torch.models.spec import tree_map
-    from repro_torch.models.ssm import mix_inputs
 
     t_phase = time.perf_counter()
-    cfg = kernel_route(get_config(arch))
-    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
+    full = get_config(arch)
+    cfg = kernel_route(dataclasses.replace(full, **(cut or {})))
+    calls = expected_calls(cfg)
     t0 = time.perf_counter()
-    params = init_params(cfg, seed, device=dev)
+    params = draw_params(cfg, seed, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
-    tokens, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (MODEL_BATCH, MODEL_SEQ)).astype(np.int32)).to(dev)
-        for _ in range(2))
+    batch = model_batch(cfg, MODEL_BATCH, MODEL_SEQ, rng, dev)
+    logits_shape = (MODEL_BATCH, 1) + ((cfg.num_lm_heads,) if cfg.num_lm_heads > 1
+                                       else ()) + (cfg.vocab_size,)
     runs = {}
-    for fn_name, fn, batch in (
-            ("forward_loss", forward_loss, {"tokens": tokens, "labels": labels}),
-            ("forward_logits_last", forward_logits_last, {"tokens": tokens})):
-        reset(counters)
-        flash_mod.reset_launches()
-        ssd_mod.reset_launches()
+    for fn_name, fn in (("forward_loss", forward_loss),
+                        ("forward_logits_last", forward_logits_last)):
+        reset_all(counters, flash_mod, ssd_mod)
         t0 = time.perf_counter()
-        out = fn(params, batch, cfg)
+        out = fn(params, batch if fn is forward_loss else
+                 {k: v for k, v in batch.items() if k != "labels"}, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read(counters)
-        by_route = dict(flash_mod.launches_by_route)
-        ssd_by_route = dict(ssd_mod.launches_by_route)
-        check(launches[kernel] == cfg.num_layers
-              and sum(launches.values()) == cfg.num_layers,
-              f"model_forward {arch} {fn_name}: launches {launches}, expected "
-              f"{cfg.num_layers} of {kernel} and no other kernel")
-        # bf16 compute: every flash launch takes the wgmma route
-        want_routes = ({"wgmma": cfg.num_layers, "tf32x3": 0}
-                       if kernel == "flash_attention" else {"wgmma": 0, "tf32x3": 0})
-        check(by_route == want_routes, f"model_forward {arch} {fn_name}: flash "
-              f"launches by route {by_route}, expected {want_routes}")
-        # and every SSD call the tensor-core route
-        want_ssd = ({"tensor_cores": cfg.num_layers, "tf32x3": 0}
-                    if kernel == "ssd" else {"tensor_cores": 0, "tf32x3": 0})
-        check(ssd_by_route == want_ssd, f"model_forward {arch} {fn_name}: SSD "
-              f"calls by route {ssd_by_route}, expected {want_ssd}")
-        check(bool(torch.isfinite(out).all()), f"model_forward {arch} {fn_name}: "
+        # bf16 compute: every flash launch on the wgmma route, every SSD
+        # call on the tensor-core route
+        launches, routes = held_calls(f"{phase} {arch} {fn_name}", counters, calls,
+                                      cfg.compute_dtype, flash_mod, ssd_mod)
+        check(bool(torch.isfinite(out).all()), f"{phase} {arch} {fn_name}: "
               "non-finite output")
         runs[fn_name] = dict(wall_s=wall, tokens_per_s=MODEL_BATCH * MODEL_SEQ / wall,
-                             launches=launches, flash_launches_by_route=by_route,
-                             ssd_calls_by_route=ssd_by_route)
+                             launches=launches, flash_launches_by_route=routes["flash"],
+                             ssd_calls_by_route=routes["ssd"])
         if fn_name == "forward_loss":
             # the value is the random init's (whose fan-in counts the stacked
             # layer axis, as the reference's does); the CPU twin below holds it
             loss = float(out)
-            check(out.shape == () and loss > 0.0, f"model_forward {arch}: loss {loss}")
+            check(out.shape == () and loss > 0.0, f"{phase} {arch}: loss {loss}")
         else:
-            check(tuple(out.shape) == (MODEL_BATCH, 1, cfg.vocab_size),
-                  f"model_forward {arch}: logits of shape {tuple(out.shape)}")
-            last = out
+            check(tuple(out.shape) == logits_shape,
+                  f"{phase} {arch}: logits of shape {tuple(out.shape)}")
+            last_logits = out
 
-    # the kernel on layer 0's own inputs
-    layer0 = tree_map(lambda a: a[0], params["blocks"],
-                      lambda x: isinstance(x, torch.Tensor))
-    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
-    if cfg.family == "ssm":
-        h = apply_norm(cfg.norm, layer0["norm"], x)
-        (xh, dt, la, bm, cm, Q), _ = mix_inputs(layer0["ssm"], h, cfg.ssm)
-        layer0_case = ssd_check(f"layer0_{arch}", xh, dt, la, bm, cm, Q,
-                                ssd_mod, ref)
+    cases = layer0_cases(arch, params, batch, cfg, flash_mod, ssd_mod, ref)
+
+    # CPU twin: the first layers in float32, card and CPU (a config too
+    # large for the host: its smoke config, card and CPU)
+    if twin_layers is None:
+        twin_cfg = kernel_route(get_smoke_config(arch))
+        twin = init_params(twin_cfg, seed, device=dev)
+        twin_batch = model_batch(twin_cfg, TWIN_BATCH, TWIN_SMOKE_SEQ, rng, dev)
+        twin_of = "smoke config"
     else:
-        h = apply_norm(cfg.norm, layer0.get("attn_norm") or None, x)
-        positions = torch.arange(MODEL_SEQ, dtype=torch.int32, device=dev)
-        q, k, v = _project_qkv(layer0["attn"], h, cfg.attn_cfg, positions)
-        layer0_case = flash_check(f"layer0_{arch}", q, k, v, cfg.sliding_window,
-                                  flash_mod, ref)
-
-    # CPU twin: the first layers in float32, card and CPU
-    twin_cfg = dataclasses.replace(cfg, num_layers=TWIN_LAYERS,
-                                   compute_dtype=torch.float32)
-    twin = first_layers(params, TWIN_LAYERS)
-    twin_batch = {"tokens": tokens[:TWIN_BATCH, :TWIN_SEQ],
-                  "labels": labels[:TWIN_BATCH, :TWIN_SEQ]}
-    reset(counters)
-    flash_mod.reset_launches()
-    ssd_mod.reset_launches()
-    card = forward_logits_last(twin, twin_batch, twin_cfg)
-    card_loss = forward_loss(twin, twin_batch, twin_cfg)
+        twin, twin_cfg = cut_depth(params, cfg, twin_layers)
+        twin_batch = head_of(batch, TWIN_BATCH, TWIN_SEQ)
+        twin_of = f"the first {twin_layers} layers"
+    twin_cfg = dataclasses.replace(twin_cfg, compute_dtype=torch.float32)
+    twin_calls = {k: 2 * n for k, n in expected_calls(twin_cfg).items()}
+    reset_all(counters, flash_mod, ssd_mod)
+    card_routing, cpu_routing = [], []
+    with routes_recorded(card_routing):
+        card = forward_logits_last(twin, twin_batch, twin_cfg)
+        card_loss = forward_loss(twin, twin_batch, twin_cfg)
     torch.cuda.synchronize()
-    twin_launches = read(counters)
     # float32 compute: every flash and SSD call takes its tf32x3 route
-    twin_routes = dict(flash_mod.launches_by_route)
-    twin_ssd = dict(ssd_mod.launches_by_route)
-    n_twin = 2 * TWIN_LAYERS
-    want_twin = {"wgmma": 0, "tf32x3": n_twin if kernel == "flash_attention" else 0}
-    want_twin_ssd = {"tensor_cores": 0, "tf32x3": n_twin if kernel == "ssd" else 0}
-    check(twin_routes == want_twin and twin_ssd == want_twin_ssd,
-          f"model_forward {arch}: the float32 twin's calls by route: flash "
-          f"{twin_routes}, expected {want_twin}; SSD {twin_ssd}, expected {want_twin_ssd}")
+    twin_launches, twin_routes = held_calls(
+        f"{phase} {arch}: the float32 twin", counters, twin_calls, torch.float32,
+        flash_mod, ssd_mod)
     t0 = time.perf_counter()
     twin_cpu = tensors_to(twin, "cpu")
     batch_cpu = {k: v.cpu() for k, v in twin_batch.items()}
-    cpu = forward_logits_last(twin_cpu, batch_cpu, twin_cfg)
-    cpu_loss = forward_loss(twin_cpu, batch_cpu, twin_cfg)
+    with routes_recorded(cpu_routing):
+        cpu = forward_logits_last(twin_cpu, batch_cpu, twin_cfg)
+        cpu_loss = forward_loss(twin_cpu, batch_cpu, twin_cfg)
     cpu_s = time.perf_counter() - t0
+    del twin_cpu
     twin_err = float((card.cpu() - cpu).abs().max())
-    check(twin_launches[kernel] == 2 * TWIN_LAYERS
-          and torch.allclose(card.cpu(), cpu, atol=TWIN_TOL, rtol=TWIN_TOL)
+    check(torch.allclose(card.cpu(), cpu, atol=TWIN_TOL, rtol=TWIN_TOL)
           and torch.allclose(card_loss.cpu(), cpu_loss, atol=TWIN_TOL, rtol=TWIN_TOL),
-          f"model_forward {arch}: the CPU twin differs: last logits by {twin_err}, "
-          f"loss {float(card_loss)} vs {float(cpu_loss)} (launches {twin_launches})")
-    rec = dict(phase="model_forward", arch=arch, family=cfg.family,
-               params=cfg.param_count(), layers=cfg.num_layers,
-               d_model=cfg.d_model, vocab=cfg.vocab_size,
-               compute_dtype=str(cfg.compute_dtype).replace("torch.", ""),
+          f"{phase} {arch}: the CPU twin differs: last logits by {twin_err}, "
+          f"loss {float(card_loss)} vs {float(cpu_loss)}")
+    routing = None
+    if cfg.moe is not None:
+        same = len(card_routing) == len(cpu_routing) and all(
+            torch.equal(a, c) and torch.equal(b, d)
+            for (a, b), (c, d) in zip(card_routing, cpu_routing))
+        dropped = sum(int((~keep).sum()) for _, keep in card_routing)
+        check(same and card_routing, f"{phase} {arch}: the twin's expert ids or keep "
+              "masks differ between card and CPU")
+        routing = dict(routings=len(card_routing), picks=sum(
+            ids.numel() for ids, _ in card_routing), dropped_picks=dropped,
+            ids_and_keep_equal=same)
+    rec = dict(phase=phase, arch=arch, family=cfg.family, reduced=cuts_of(full, cfg),
+               params=cfg.param_count(), active_params=cfg.active_param_count(),
+               param_dtype=dtype_name(cfg.param_dtype), layers=cfg.num_layers,
+               attn_layers=cfg.num_attn_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, compute_dtype=dtype_name(cfg.compute_dtype),
                batch=MODEL_BATCH, seq=MODEL_SEQ, seed=seed, init_s=init_s,
-               loss=loss, logits_last_finite=True,
-               logits_last_abs_max=float(last.float().abs().max()),
-               runs=runs, kernel=kernel,
-               launches_per_forward=runs["forward_logits_last"]["launches"][kernel],
+               loss=loss, logits_last_finite=True, logits_shape=list(logits_shape),
+               logits_last_abs_max=float(last_logits.float().abs().max()),
+               runs=runs, launches_per_forward=runs["forward_logits_last"]["launches"],
                flash_launches_by_route=runs["forward_logits_last"][
                    "flash_launches_by_route"],
                ssd_calls_by_route=runs["forward_logits_last"]["ssd_calls_by_route"],
-               layer0_kernel_case=layer0_case,
-               cpu_twin=dict(layers=TWIN_LAYERS, batch=TWIN_BATCH, seq=TWIN_SEQ,
+               layer0_kernel_cases=cases,
+               cpu_twin=dict(of=twin_of, layers=twin_cfg.num_layers,
+                             batch=TWIN_BATCH, positions=positions_of(batch_cpu),
                              dtype="float32", tolerance=TWIN_TOL,
-                             flash_launches_by_route=twin_routes,
-                             ssd_calls_by_route=twin_ssd, max_abs_err=twin_err, loss_card=float(card_loss),
-                             loss_cpu=float(cpu_loss), card_launches=twin_launches,
-                             cpu_s=cpu_s),
+                             flash_launches_by_route=twin_routes["flash"],
+                             ssd_calls_by_route=twin_routes["ssd"], max_abs_err=twin_err,
+                             loss_card=float(card_loss), loss_cpu=float(cpu_loss),
+                             card_launches=twin_launches, routing=routing, cpu_s=cpu_s),
                phase_s=time.perf_counter() - t_phase)
+    if len(cases) == 1:     # the one kernel's case, for the kernels line
+        rec["layer0_kernel_case"] = next(iter(cases.values()))
     return params, cfg, rec
 
 
-def decode_after_prefill(params, toks, cfg):
-    """One ``decode_step`` after ``prefill`` of ``toks[:, :-1]``, and the
-    kernel path's ``forward_logits_last`` of ``toks``: (decode logits,
-    forward logits)."""
+def decode_after_prefill(params, batch, cfg):
+    """One ``decode_step`` after ``prefill`` of all but the batch's last
+    position, and the kernel path's ``forward_logits_last`` of all of it:
+    (decode logits, forward logits)."""
+    from repro_torch.data import split_last
     from repro_torch.models import decode_step, forward_logits_last, prefill
-    want = forward_logits_last(params, {"tokens": toks}, cfg)
-    _, cache = prefill(params, {"tokens": toks[:, :-1]}, cfg,
-                       max_len=toks.shape[1] + 8)
-    got, _ = decode_step(params, {"tokens": toks[:, -1:]}, cache, cfg)
+    want = forward_logits_last(params, {k: v for k, v in batch.items() if k != "labels"},
+                               cfg)
+    head, tail = split_last(batch)
+    _, cache = prefill(params, head, cfg, max_len=positions_of(batch) + 8)
+    got, _ = decode_step(params, tail, cache, cfg)
     return got, want
 
 
-def serve_phase(arch, params, cfg, seed, dev, counters):
-    """StaticBatchEngine on the card, then decode after prefill against the
-    kernel path's forward: held in float32 at full depth; in bf16 held card
-    against CPU at TWIN_LAYERS and its drift recorded by depth."""
-    from repro_torch.kernels import flash_attention as flash_mod
-    from repro_torch.kernels import ssd as ssd_mod
+def engine_run(arch, params, cfg, prompts, rng, dev, counters) -> dict:
+    """StaticBatchEngine on the card: 4 requests of ``prompts`` tokens,
+    SERVE_NEW new tokens each, SERVE_SLOTS slots."""
     from repro_torch.serve import Request, ServeConfig, StaticBatchEngine
-
-    t_phase = time.perf_counter()
-    rng = np.random.default_rng(seed)
     eng = StaticBatchEngine(cfg, params, ServeConfig(
         batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN), device=dev)
-    for i, n in enumerate(SERVE_PROMPTS):
+    for i, n in enumerate(prompts):
         eng.submit(Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                            max_new_tokens=SERVE_NEW))
     reset(counters)
@@ -2126,51 +2343,61 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
     wall = time.perf_counter() - t0
     launches = read(counters)
     st = eng.stats
-    waves = -(-len(SERVE_PROMPTS) // SERVE_SLOTS)
-    check(len(done) == len(SERVE_PROMPTS)
+    waves = -(-len(prompts) // SERVE_SLOTS)
+    check(len(done) == len(prompts)
           and all(r.done and len(r.output) == SERVE_NEW
                   and all(0 <= t < cfg.vocab_size for t in r.output) for r in done)
           and st["waves"] == waves and st["decode_steps"] == waves * SERVE_NEW,
           f"serve {arch}: {len(done)} requests done, stats {st}")
+    # prefill and decode run the plain paths: no kernel
+    check(not any(launches.values()), f"serve {arch}: the engine launched {launches}")
+    return dict(prompts=list(prompts), new_tokens=SERVE_NEW, slots=SERVE_SLOTS,
+                waves=st["waves"], decode_steps=st["decode_steps"],
+                slot_utilization=eng.slot_utilization,
+                prefill_ms_per_wave=st["prefill"] / st["waves"] * 1e3,
+                decode_ms_per_step=st["decode"] / st["decode_steps"] * 1e3,
+                tokens_out=sum(len(r.output) for r in done), wall_s=wall,
+                launches=launches)
 
-    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CHECK_SEQ))
-                            .astype(np.int32)).to(dev)
-    drift, check_s, routes, ssd_routes = {}, {}, {}, {}
+
+def decode_check(arch, params, cfg, rng, dev, counters, bf16_depths=True) -> dict:
+    """Decode after prefill of CHECK_SEQ - 1 positions against the kernel
+    path's forward of CHECK_SEQ: held in float32 at the model's depth (every
+    flash and SSD call on its tf32x3 route); in bf16 the drift recorded, and
+    with ``bf16_depths`` recorded by depth and the card's bf16 prefill +
+    decode held against the CPU's at the twin's depth."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.models.moe import one_group
+    batch = model_batch(cfg, 1, CHECK_SEQ, rng, dev)
+    cfg = one_group(cfg, CHECK_SEQ)
+    calls = expected_calls(cfg)
+    drift, check_s, routes = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
-        reset(counters)
-        flash_mod.reset_launches()
-        ssd_mod.reset_launches()
+        name = dtype_name(dtype)
+        reset_all(counters, flash_mod, ssd_mod)
         t0 = time.perf_counter()
-        got, want = decode_after_prefill(params, toks, c)
+        got, want = decode_after_prefill(params, batch, c)
         torch.cuda.synchronize()
-        name = str(dtype).replace("torch.", "")
         check_s[name] = time.perf_counter() - t0
-        # the forward launches the kernel once a layer; prefill and decode none
-        got_launches = read(counters)
-        check(got_launches[kernel] == cfg.num_layers
-              and sum(got_launches.values()) == cfg.num_layers,
-              f"serve {arch}: the check launched {got_launches}")
-        # flash and SSD by dtype: float32 on their tf32x3 routes, bf16 on
-        # wgmma and tensor_cores
-        routes[name] = dict(flash_mod.launches_by_route)
-        ssd_routes[name] = dict(ssd_mod.launches_by_route)
-        n_flash = cfg.num_layers if kernel == "flash_attention" else 0
-        n_ssd = cfg.num_layers - n_flash
-        f32 = dtype == torch.float32
-        want_routes = {"wgmma": 0 if f32 else n_flash, "tf32x3": n_flash if f32 else 0}
-        want_ssd = {"tensor_cores": 0 if f32 else n_ssd, "tf32x3": n_ssd if f32 else 0}
-        check(routes[name] == want_routes and ssd_routes[name] == want_ssd,
-              f"serve {arch}: the {name} check's calls by route: flash {routes[name]}, "
-              f"expected {want_routes}; SSD {ssd_routes[name]}, expected {want_ssd}")
-        drift[str(dtype).replace("torch.", "")] = float(
-            (got.float() - want.float()).abs().max())
+        # the forward launches its kernels; prefill and decode none
+        _, routes[name] = held_calls(f"serve {arch}: the {name} check", counters, calls,
+                                     dtype, flash_mod, ssd_mod)
+        check(got.shape == want.shape, f"serve {arch}: decode logits {tuple(got.shape)}, "
+              f"forward {tuple(want.shape)}")
+        drift[name] = float((got.float() - want.float()).abs().max())
     # float32: the two paths differ only in the order of sums
     check(drift["float32"] <= DECODE_TOL,
           f"serve {arch}: decode after prefill differs from the forward by "
           f"{drift['float32']} (float32)")
-
+    rec = dict(seq=CHECK_SEQ, tolerance=DECODE_TOL, held="float32",
+               moe_group_size=cfg.moe.group_size if cfg.moe else None,
+               max_abs_err=drift, seconds=check_s,
+               flash_launches_by_route={k: v["flash"] for k, v in routes.items()},
+               ssd_calls_by_route={k: v["ssd"] for k, v in routes.items()})
+    if not bf16_depths:
+        return rec
     # bf16: the plain prefill/decode path rounds attention probabilities
     # (and the SSD scan's C B^T and intra-chunk product) to bf16 in every
     # layer, as the reference's does, where the kernels keep float32; the
@@ -2180,16 +2407,16 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
     c16 = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     by_depth = {}
     for L in sorted({TWIN_LAYERS, cfg.num_layers // 4, cfg.num_layers // 2}):
-        got, want = decode_after_prefill(first_layers(params, L), toks,
-                                         dataclasses.replace(c16, num_layers=L))
+        p, c = cut_depth(params, c16, L)
+        got, want = decode_after_prefill(p, batch, c)
         by_depth[L] = float((got.float() - want.float()).abs().max())
     by_depth[cfg.num_layers] = drift["bfloat16"]
-    twin_cfg = dataclasses.replace(c16, num_layers=TWIN_LAYERS)
-    twin_toks = toks[:, :TWIN_SEQ]
-    card = decode_after_prefill(first_layers(params, TWIN_LAYERS), twin_toks, twin_cfg)
+    twin, twin_cfg = cut_depth(params, c16, TWIN_LAYERS)
+    twin_batch = head_of(batch, 1, TWIN_SEQ)
+    card = decode_after_prefill(twin, twin_batch, twin_cfg)
     t0 = time.perf_counter()
-    cpu = decode_after_prefill(tensors_to(first_layers(params, TWIN_LAYERS), "cpu"),
-                               twin_toks.cpu(), twin_cfg)
+    cpu = decode_after_prefill(tensors_to(twin, "cpu"),
+                               {k: v.cpu() for k, v in twin_batch.items()}, twin_cfg)
     cpu_s = time.perf_counter() - t0
     twin_errs = [float((g.float().cpu() - w.float()).abs().max())
                  for g, w in zip(card, cpu)]
@@ -2197,25 +2424,121 @@ def serve_phase(arch, params, cfg, seed, dev, counters):
                              rtol=TWIN_TOL_BF16) for g, w in zip(card, cpu)),
           f"serve {arch}: bf16 decode and forward logits on the card differ "
           f"from the CPU's by {twin_errs}")
-    return dict(phase="serve", arch=arch, prompts=list(SERVE_PROMPTS),
-                new_tokens=SERVE_NEW, slots=SERVE_SLOTS, waves=st["waves"],
-                decode_steps=st["decode_steps"],
-                slot_utilization=eng.slot_utilization,
-                prefill_ms_per_wave=st["prefill"] / st["waves"] * 1e3,
-                decode_ms_per_step=st["decode"] / st["decode_steps"] * 1e3,
-                tokens_out=sum(len(r.output) for r in done), wall_s=wall,
-                launches=launches,
-                decode_after_prefill=dict(
-                    seq=CHECK_SEQ, tolerance=DECODE_TOL, held="float32",
-                    max_abs_err=drift, seconds=check_s, flash_launches_by_route=routes,
-                    ssd_calls_by_route=ssd_routes,
-                    bf16_max_abs_err_by_layers=by_depth,
-                    bf16_cpu_twin=dict(layers=TWIN_LAYERS, seq=TWIN_SEQ,
-                                       tolerance=TWIN_TOL_BF16,
-                                       decode_max_abs_err=twin_errs[0],
-                                       forward_max_abs_err=twin_errs[1],
-                                       cpu_s=cpu_s)),
-                phase_s=time.perf_counter() - t_phase)
+    rec.update(bf16_max_abs_err_by_layers=by_depth,
+               bf16_cpu_twin=dict(layers=TWIN_LAYERS, seq=TWIN_SEQ,
+                                  tolerance=TWIN_TOL_BF16,
+                                  decode_max_abs_err=twin_errs[0],
+                                  forward_max_abs_err=twin_errs[1], cpu_s=cpu_s))
+    return rec
+
+
+def serve_phase(arch, params, cfg, seed, dev, counters, prompts=SERVE_PROMPTS,
+                bf16_depths=True):
+    """StaticBatchEngine on the card, then decode after prefill against the
+    kernel path's forward (:func:`decode_check`)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    rec = dict(phase="serve", arch=arch, **engine_run(arch, params, cfg, prompts, rng,
+                                                      dev, counters))
+    rec["decode_after_prefill"] = decode_check(arch, params, cfg, rng, dev, counters,
+                                               bf16_depths)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def frames_decode(arch, params, cfg, rng, dev, counters) -> dict:
+    """An audio model served on frames: prefill of FRAMES_PROMPT frames for
+    MODEL_BATCH sequences, then SERVE_NEW decode steps, each on a new frame
+    (the frontend stub's input: a codebook-summed embedding); logits (B, 1,
+    heads, V) finite, ms a step."""
+    from repro_torch.models import decode_step, prefill
+    batch = model_batch(cfg, MODEL_BATCH, FRAMES_PROMPT + SERVE_NEW, rng, dev)
+    frames = batch["frames"]
+    reset(counters)
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"frames": frames[:, :FRAMES_PROMPT]}, cfg,
+                       max_len=FRAMES_PROMPT + SERVE_NEW)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(FRAMES_PROMPT, FRAMES_PROMPT + SERVE_NEW):
+        logits, cache = decode_step(params, {"frames": frames[:, i:i + 1]}, cache, cfg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read(counters)
+    want = (MODEL_BATCH, 1, cfg.num_lm_heads, cfg.vocab_size)
+    check(tuple(logits.shape) == want and bool(torch.isfinite(logits).all())
+          and int(cache["attn"]["length"][0]) == FRAMES_PROMPT + SERVE_NEW
+          and not any(launches.values()),
+          f"frames_decode {arch}: logits {tuple(logits.shape)}, launches {launches}")
+    return dict(batch=MODEL_BATCH, prompt_frames=FRAMES_PROMPT, decode_steps=SERVE_NEW,
+                prefill_ms=prefill_s * 1e3, decode_ms_per_step=decode_s / SERVE_NEW * 1e3,
+                logits_shape=list(want), launches=launches)
+
+
+def serve_decode_example(arch, dev, counters) -> dict:
+    """The ported serving demo (``repro_torch.examples.serve_decode``) at
+    the published widths on the card: its prefill (an image's patches
+    before the prompt) and greedy decode; every token in the vocabulary."""
+    import contextlib
+    import io
+    from repro_torch.examples import serve_decode
+    argv = ["--arch", arch, "--full", "--batch", str(EXAMPLE_BATCH),
+            "--prompt-len", str(EXAMPLE_PROMPT), "--new-tokens", str(SERVE_NEW),
+            "--device", str(dev)]
+    reset(counters)
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = serve_decode.main(argv)
+    launches = read(counters)
+    tokens, cfg = out["tokens"], out["cfg"]
+    check(tokens.shape == (EXAMPLE_BATCH, SERVE_NEW)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+          and not any(launches.values()),
+          f"serve_decode {arch}: tokens {tokens.shape}, launches {launches}")
+    rec = dict(argv=argv, positions=cfg.num_frontend_tokens + EXAMPLE_PROMPT,
+               prefill_s=out["prefill_s"], decode_ms_per_step=out["decode_s"] / SERVE_NEW * 1e3,
+               tokens_per_s=EXAMPLE_BATCH * SERVE_NEW / out["decode_s"],
+               printed=printed.getvalue().splitlines(), launches=launches)
+    del out
+    return rec
+
+
+def model_families_phase(dev, counters) -> tuple[dict, dict]:
+    """The hybrid, vlm, audio and moe families at full width (two moe
+    configs cut in depth, arctic also to bf16 parameters): each through
+    :func:`model_forward_phase` (one line each), then zamba2 and qwen3-moe
+    through the serving engine, decode after prefill held for four of them,
+    musicgen decoding on frames, paligemma through the serving demo."""
+    t_phase = time.perf_counter()
+    models = {}
+    for arch, cut, twin in FAMILY_ARCHS:
+        params, cfg, rec = model_forward_phase(arch, 0, dev, counters, cut=cut,
+                                               twin_layers=twin, phase="model_families")
+        rng = np.random.default_rng(1)
+        if arch in FAMILY_SERVE:
+            rec["serve"] = engine_run(arch, params, cfg, FAMILY_SERVE[arch], rng, dev,
+                                      counters)
+        if arch in FAMILY_CHECK:
+            rec["decode_after_prefill"] = decode_check(arch, params, cfg, rng, dev,
+                                                       counters, bf16_depths=False)
+        if cfg.frontend == "frames":
+            rec["frames_decode"] = frames_decode(arch, params, cfg, rng, dev, counters)
+        del params
+        torch.cuda.empty_cache()
+        if cfg.frontend == "patches":
+            rec["serve_decode_example"] = serve_decode_example(arch, dev, counters)
+            torch.cuda.empty_cache()
+        rec["forward_s"] = rec["phase_s"]
+        rec["phase_s"] = time.perf_counter() - t_phase - sum(
+            m["phase_s"] for m in models.values())
+        emit(rec)
+        models[arch] = rec
+    return dict(phase="model_families", archs=list(models),
+                launches_per_forward={a: m["launches_per_forward"] for a, m in models.items()},
+                reduced={a: m["reduced"] for a, m in models.items()},
+                tokens_per_s={a: m["runs"]["forward_logits_last"]["tokens_per_s"]
+                              for a, m in models.items()},
+                phase_s=time.perf_counter() - t_phase), models
 
 
 # ---- the paper-figure drivers and the trial executor's pieces -------------------
@@ -3164,13 +3487,16 @@ def main() -> int:
         emit(served[arch])
         del params
         torch.cuda.empty_cache()
+    families, family_recs = model_families_phase(dev, all_counters)
+    emit(families)
     emit(train_pieces_phase(dev))
     for arch in TRAIN_STEP_ARCHS:
         emit(train_step_phase(arch, dev, all_counters))
     service = service_phase(dev, all_counters)
     emit(service)
-    main_launches["flash_attention"] = forward["qwen3-4b"]["launches_per_forward"]
-    main_launches["ssd"] = forward["mamba2-1.3b"]["launches_per_forward"]
+    main_launches["flash_attention"] = forward["qwen3-4b"]["launches_per_forward"][
+        "flash_attention"]
+    main_launches["ssd"] = forward["mamba2-1.3b"]["launches_per_forward"]["ssd"]
 
     # Fig-5 shapes for the first two; the top-k kernel on the inputs the
     # churn trace's run (a) gave one shard, the class-axis kernel on inputs
@@ -3259,11 +3585,21 @@ def main() -> int:
                                serve_check_calls=served["mamba2-1.3b"][
                                    "decode_after_prefill"]["ssd_calls_by_route"][
                                    "float32"]["tf32x3"])})
+    # the other families' forwards (model_families), and their kernels on
+    # the inputs each model first gives them
+    family_cases = {name: [m["layer0_kernel_cases"][name] for m in family_recs.values()
+                           if name in m["layer0_kernel_cases"]]
+                    for name in ("flash_attention", "ssd")}
+    for name in family_cases:
+        extra[name]["model_families_launches"] = {
+            a: m["launches_per_forward"][name] for a, m in family_recs.items()
+            if m["launches_per_forward"][name]}
     cases = {"eirate": ei_cases, "gp_readout": ro_cases,
              "eirate_topk": topk_cases + rec["main_path_inputs"],
              "eirate_classes": classes_cases + dp["main_path_inputs"],
-             "flash_attention": flash_cases + [head["flash_attention"]],
-             "ssd": ssd_cases + [head["ssd"]]}
+             "flash_attention": flash_cases + [head["flash_attention"]]
+             + family_cases["flash_attention"],
+             "ssd": ssd_cases + [head["ssd"]] + family_cases["ssd"]}
     emit(dict(phase="profiler", windows_retried=PROFILER_RETRIES,
               attempts_allowed=PROFILER_ATTEMPTS))
     emit({"kernels": [dict(

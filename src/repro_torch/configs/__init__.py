@@ -1,10 +1,9 @@
-"""Registry of the ported architectures: ``get_config(<arch id>)``.
+"""Registry of the architectures: ``get_config(<arch id>)``.
 
 Each module exposes ``config()`` (the published widths) and
 ``smoke_config()`` (a reduced same-family config for the CPU tests),
-copied from the reference's ``repro.configs``.  Only the dense and ssm
-families are ported; the reference's other architectures raise and name
-the slice they wait for.
+copied from the reference's ``repro.configs``: its ten architectures, in
+its order.
 """
 
 from __future__ import annotations
@@ -12,7 +11,12 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = (
+    "musicgen-medium",
+    "zamba2-2.7b",
+    "paligemma-3b",
     "mamba2-1.3b",
+    "arctic-480b",
+    "qwen3-moe-235b-a22b",
     "qwen3-4b",
     "qwen3-8b",
     "olmo-1b",
@@ -20,20 +24,16 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "musicgen-medium": "musicgen_medium",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "paligemma-3b": "paligemma_3b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "arctic-480b": "arctic_480b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-4b": "qwen3_4b",
     "qwen3-8b": "qwen3_8b",
     "olmo-1b": "olmo_1b",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
-}
-
-# the reference's architectures that are not ported yet, by family
-_NOT_PORTED = {
-    "musicgen-medium": "audio",
-    "zamba2-2.7b": "hybrid",
-    "paligemma-3b": "vlm",
-    "arctic-480b": "moe",
-    "qwen3-moe-235b-a22b": "moe",
 }
 
 # (seq_len, global_batch, kind); kind: train | prefill | decode | long_decode
@@ -46,12 +46,8 @@ SHAPES = {
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id} ({_NOT_PORTED[arch_id]} family) is not ported yet: it "
-            "waits for the data plane's next slice")
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"{__name__}.{_MODULES[arch_id]}")
 
 

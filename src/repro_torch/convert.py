@@ -18,6 +18,7 @@ import torch
 from .core.control_plane import ControlPlane
 from .core.gp import DEFAULT_JITTER, BlockIncrementalGP, IncrementalGP
 from .models.model import ModelConfig
+from .models.moe import MoEConfig
 from .models.spec import tree_map
 from .models.ssm import SSMConfig
 
@@ -137,9 +138,9 @@ def _torch_dtype(d) -> torch.dtype:
 def model_config(fields: dict) -> ModelConfig:
     """The port's :class:`ModelConfig` from the fields of a reference
     ``ModelConfig`` (``{f.name: getattr(cfg, f.name)}``): dtypes mapped to
-    torch's, the ``ssm`` NamedTuple to the port's, the ``use_pallas``
-    switches and ``remat`` kept, and the reference's ``lax.scan`` unrolls
-    dropped."""
+    torch's, the ``ssm`` and ``moe`` NamedTuples to the port's, the
+    ``use_pallas`` switches and ``remat`` kept, and the reference's
+    ``lax.scan`` unrolls dropped."""
     f = {k: v for k, v in fields.items() if k not in _NOT_PORTED_FIELDS}
     f["compute_dtype"] = _torch_dtype(f.get("compute_dtype", torch.bfloat16))
     f["param_dtype"] = _torch_dtype(f.get("param_dtype", torch.float32))
@@ -148,4 +149,7 @@ def model_config(fields: dict) -> ModelConfig:
         s = s._asdict() if hasattr(s, "_asdict") else dict(s)
         f["ssm"] = SSMConfig(**{k: v for k, v in s.items()
                                 if k not in _NOT_PORTED_FIELDS})
+    if f.get("moe") is not None:
+        m = f["moe"]
+        f["moe"] = MoEConfig(**(m._asdict() if hasattr(m, "_asdict") else dict(m)))
     return ModelConfig(**f)

@@ -87,6 +87,40 @@ class SyntheticLMStream:
         return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
 
 
+def random_batch(model_cfg, B: int, S: int, rng: np.random.Generator) -> dict:
+    """A batch of S positions as numpy arrays, drawn uniformly from ``rng``
+    by the config's frontend: tokens and labels; ``patches``: the image's
+    patches, then S - patches text tokens, labels over the text;
+    ``frames``: frame embeddings and labels (B, S, heads).  The port's own
+    (the reference has none): a batch for checks, where the stream's Zipf
+    tokens and shifted labels matter not."""
+    m, V = model_cfg, model_cfg.vocab_size
+    if m.frontend == "frames":
+        return {"frames": rng.standard_normal((B, S, m.frontend_dim)).astype(np.float32),
+                "labels": rng.integers(0, V, (B, S, m.num_lm_heads)).astype(np.int32)}
+    n = S - m.num_frontend_tokens if m.frontend == "patches" else S
+    batch = {"tokens": rng.integers(0, V, (B, n)).astype(np.int32),
+             "labels": rng.integers(0, V, (B, n)).astype(np.int32)}
+    if m.frontend == "patches":
+        batch["patches"] = rng.standard_normal(
+            (B, m.num_frontend_tokens, m.frontend_dim)).astype(np.float32)
+    return batch
+
+
+def seq_key(batch: dict) -> str:
+    """The batch's sequence input: ``frames`` or ``tokens``."""
+    return "frames" if "frames" in batch else "tokens"
+
+
+def split_last(batch: dict) -> tuple[dict, dict]:
+    """(the batch less its last position and its labels, its last position
+    alone): a prefill's input and the next decode step's.  An image's
+    patches go with the prefill."""
+    key = seq_key(batch)
+    head = {k: (v[:, :-1] if k == key else v) for k, v in batch.items() if k != "labels"}
+    return head, {key: batch[key][:, -1:]}
+
+
 def make_batch_iterator(cfg: DataConfig, model_cfg: ModelConfig, start_step: int = 0):
     """Prefetching iterator of ``(step, batch)``; resume from ``start_step``
     after a restart.  ``close()`` stops its producer thread."""

@@ -1,5 +1,5 @@
-"""The data plane's models: specs, layers, attention, Mamba2 SSD and the
-backbone, for the dense and ssm families."""
+"""The data plane's models: specs, layers, attention, Mamba2 SSD, the MoE
+layer and the backbone, for the reference's six families."""
 
 from .model import (  # noqa: F401
     ModelConfig,

@@ -1,15 +1,18 @@
 """The decoder-LM backbone of the data plane: training, scoring and serving.
 
-Counterpart of ``repro.models.model`` for the families ported so far:
+Counterpart of ``repro.models.model``, for all ten architectures:
 
   dense   (qwen3-4b/8b, olmo-1b, h2o-danube-3-4b)   attn + MLP blocks
+  moe     (arctic-480b, qwen3-moe-235b-a22b)        attn + MoE (+dense residual)
   ssm     (mamba2-1.3b)                             Mamba2 SSD blocks
+  hybrid  (zamba2-2.7b)                             Mamba2 + shared attn block
+  vlm     (paligemma-3b)                            patch-embedding frontend stub
+  audio   (musicgen-medium)                         frame-embedding frontend stub
 
-``moe``, ``hybrid``, ``vlm`` and ``audio`` raise ``NotImplementedError``:
-they wait for the data plane's next slice.  Parameters are the reference's
-tree, nested dicts of tensors with its key paths, every block's leaves
-stacked on a leading layer axis; the layer stack is a Python loop over
-that axis (the reference's ``lax.scan``).
+Parameters are the reference's tree, nested dicts of tensors with its key
+paths, every block's leaves stacked on a leading layer axis (the hybrid's
+twice: groups, then the k Mamba2 layers of a group); the layer stack is a
+Python loop over that axis (the reference's ``lax.scan``).
 
 The full-sequence forward (``forward_logits_last``, ``forward_loss``)
 takes the reference's two routes: with ``use_pallas`` (and, for the SSD
@@ -17,9 +20,9 @@ block, ``ssm.use_pallas``) the flash attention and SSD kernels, which are
 forward only; by default the plain route, which autograd differentiates
 (``train.make_train_step``).  Each block runs under the reference's remat
 policy (``remat``: ``"full"`` recomputes the block in the backward pass,
-``"dots"`` keeps the matmul outputs, ``"none"`` keeps everything).
-``prefill`` and ``decode_step`` run the plain paths that build and use the
-decode cache.
+``"dots"`` keeps the matmul outputs, ``"none"`` keeps everything); the
+hybrid's shared block under a wrapper of its own.  ``prefill`` and
+``decode_step`` run the plain paths that build and use the decode cache.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .attention import AttnConfig, KVCache
 from .layers import (
@@ -50,16 +54,15 @@ from .layers import (
     softmax_xent_chunked,
     unembed_logits,
 )
+from .moe import MoEConfig
 from .spec import ParamSpec, init_from_specs, tree_leaves, tree_map
 from .ssm import SSMCache, SSMConfig
-
-PORTED_FAMILIES = ("dense", "ssm")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | ssm  (moe | hybrid | vlm | audio: not ported)
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     vocab_size: int
@@ -73,18 +76,18 @@ class ModelConfig:
     # mlp / moe
     d_ff: int = 0
     mlp_activation: str = "silu"
-    moe: Any = None
-    dense_residual: bool = False
+    moe: MoEConfig | None = None
+    dense_residual: bool = False  # Arctic: parallel dense MLP beside MoE
     # ssm / hybrid
     ssm: SSMConfig | None = None
-    hybrid_attn_every: int = 0
+    hybrid_attn_every: int = 0    # Zamba2: shared attn block every k layers
     # embeddings / heads
     norm: str = "rms"
     tie_embeddings: bool = False
-    num_lm_heads: int = 1
-    frontend: str | None = None
+    num_lm_heads: int = 1         # MusicGen: 4 codebook heads
+    frontend: str | None = None   # None | "patches" | "frames"
     frontend_dim: int = 0
-    num_frontend_tokens: int = 0
+    num_frontend_tokens: int = 0  # VLM: image tokens prepended
     # execution
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
@@ -106,23 +109,42 @@ class ModelConfig:
             rope_theta=self.rope_theta, q_chunk=self.q_chunk,
             use_pallas=self.use_pallas, logits_fp32=self.attn_logits_fp32)
 
+    @property
+    def uses_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def num_attn_layers(self) -> int:
+        if self.family == "ssm":
+            return 0
+        if self.family == "hybrid":
+            return self.num_layers // self.hybrid_attn_every
+        return self.num_layers
+
     def param_count(self) -> int:
         return sum(math.prod(s.shape) for s in tree_leaves(model_specs(self)))
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: all of them in the ported dense and
-        ssm families (moe, which touches top_k of num_experts, is not
-        ported)."""
-        return self.param_count()
+        """Parameters touched per token (MoE: top_k of num_experts of the
+        expert weights, ``wi_gate``/``wi_up``/``wo`` under a ``moe`` key)."""
+        if self.moe is None:
+            return self.param_count()
+        total = 0
+        for path, spec in _spec_paths(model_specs(self)):
+            n = math.prod(spec.shape)
+            if "moe" in path and any(k in ("wi_gate", "wi_up", "wo") for k in path):
+                n = n * self.moe.top_k // self.moe.num_experts
+            total += n
+        return total
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.family not in PORTED_FAMILIES or cfg.moe is not None
-            or cfg.frontend is not None or cfg.num_lm_heads != 1):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r}) is "
-            "not ported yet; moe, hybrid, vlm and audio wait for the data "
-            "plane's next slice")
+def _spec_paths(tree, path: tuple = ()):
+    """(key path, ParamSpec) of every leaf of a spec tree."""
+    if isinstance(tree, ParamSpec):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_paths(tree[k], path + (k,))
 
 
 # ---------------------------------------------------------------------------
@@ -139,25 +161,51 @@ def _stack_specs(specs, n: int):
 def _block_specs(cfg: ModelConfig) -> dict:
     """Specs for one repeated block (pre-stacking)."""
     d = cfg.d_model
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return {"norm": rmsnorm_specs(d), "ssm": ssm_lib.ssm_specs(cfg.ssm)}
-    return {
+    block: dict = {
         "attn_norm": rmsnorm_specs(d) if cfg.norm == "rms" else {},
         "attn": attn_lib.attn_specs(cfg.attn_cfg),
         "mlp_norm": rmsnorm_specs(d) if cfg.norm == "rms" else {},
-        "mlp": mlp_specs(d, cfg.d_ff),
     }
+    if cfg.moe is not None:
+        block["moe"] = moe_lib.moe_specs(cfg.moe)
+        if cfg.dense_residual:
+            block["mlp"] = mlp_specs(d, cfg.d_ff)
+    else:
+        block["mlp"] = mlp_specs(d, cfg.d_ff)
+    return block
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     d = cfg.d_model
-    specs: dict = {"embed": embed_specs(cfg.vocab_size, d),
-                   "blocks": _stack_specs(_block_specs(cfg), cfg.num_layers)}
+    specs: dict = {}
+    if cfg.frontend in (None, "patches"):
+        specs["embed"] = embed_specs(cfg.vocab_size, d)
+    elif cfg.frontend != "frames":
+        raise ValueError(cfg.frontend)
+    if cfg.frontend in ("patches", "frames"):
+        specs["frontend_proj"] = ParamSpec(
+            (cfg.frontend_dim, d), ("embed_out", "embed"), init="fan_in")
+
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        specs["blocks"] = _stack_specs(_stack_specs(_block_specs(cfg), k),
+                                       cfg.num_layers // k)
+        specs["shared_attn"] = {
+            "attn_norm": rmsnorm_specs(d), "attn": attn_lib.attn_specs(cfg.attn_cfg),
+            "mlp_norm": rmsnorm_specs(d), "mlp": mlp_specs(d, cfg.d_ff)}
+    else:
+        specs["blocks"] = _stack_specs(_block_specs(cfg), cfg.num_layers)
+
     if cfg.norm == "rms":
         specs["final_norm"] = rmsnorm_specs(d)
     if not cfg.tie_embeddings:
-        specs["head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"), init="fan_in")
+        if cfg.num_lm_heads == 1:
+            specs["head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"), init="fan_in")
+        else:
+            specs["head"] = ParamSpec((cfg.num_lm_heads, d, cfg.vocab_size),
+                                      (None, "embed", "vocab"), init="fan_in")
     return specs
 
 
@@ -187,7 +235,8 @@ def _is_tensor(x) -> bool:
 
 
 def _layers(stacked):
-    """The per-layer subtrees of a tree stacked on a leading layer axis.
+    """The per-layer subtrees of a tree stacked on a leading layer axis (a
+    tree stacked twice gives its groups, each stacked once).
 
     Each leaf is split by ``unbind``, whose backward stacks the layers'
     gradients once, where indexing layer by layer would add a full-size
@@ -206,16 +255,40 @@ def _norm_params(p: dict, key: str):
     return p.get(key) or None          # {} (non-parametric norm) -> None
 
 
+def _ffn(p, h, cfg: ModelConfig, decode: bool = False):
+    """The block's feed-forward half on the normed input h: the MLP, or the
+    MoE (``moe_decode`` for one token; with Arctic's parallel dense MLP);
+    (output, aux loss)."""
+    if cfg.moe is None:
+        return mlp_apply(p["mlp"], h, cfg.mlp_activation), 0.0
+    if decode:
+        y, aux = moe_lib.moe_decode(p["moe"], h, cfg.moe), 0.0
+    else:
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe)
+    if cfg.dense_residual:
+        y = y + mlp_apply(p["mlp"], h, cfg.mlp_activation)
+    return y, aux
+
+
 def _transformer_block(p, x, positions, cfg: ModelConfig):
     h = apply_norm(cfg.norm, _norm_params(p, "attn_norm"), x)
     x = x + attn_lib.attention_train(p["attn"], h, positions, cfg.attn_cfg)
     h = apply_norm(cfg.norm, _norm_params(p, "mlp_norm"), x)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_activation)
+    y, aux = _ffn(p, h, cfg)
+    return x + y, aux
 
 
 def _ssm_block(p, x, cfg: ModelConfig):
     h = apply_norm(cfg.norm, p["norm"], x)
     return x + ssm_lib.ssm_train(p["ssm"], h, cfg.ssm)
+
+
+def _shared_block(shared, x, positions, cfg: ModelConfig):
+    """Zamba2's shared attention block (one weight copy for every group)."""
+    a = apply_norm(cfg.norm, shared["attn_norm"], x)
+    x = x + attn_lib.attention_train(shared["attn"], a, positions, cfg.attn_cfg)
+    m = apply_norm(cfg.norm, shared["mlp_norm"], x)
+    return x + mlp_apply(shared["mlp"], m, cfg.mlp_activation)
 
 
 _MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -247,24 +320,55 @@ def _remat(fn, cfg: ModelConfig):
 
 def _apply_blocks_train(params, x, positions, cfg: ModelConfig):
     """The stacked blocks, layer by layer, over the whole sequence, each
-    block under the remat policy."""
+    block under the remat policy; returns (x, the MoE's aux loss summed over
+    the layers, 0.0 without one)."""
+    aux_total = 0.0
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        block = _remat(lambda p, h: _transformer_block(p, h, positions, cfg), cfg)
+        for layer_p in _layers(params["blocks"]):
+            x, aux = block(layer_p, x)
+            aux_total = aux_total + aux
+        return x, aux_total
     if cfg.family == "ssm":
         block = _remat(lambda p, h: _ssm_block(p, h, cfg), cfg)
-    else:
-        block = _remat(lambda p, h: _transformer_block(p, h, positions, cfg), cfg)
-    for layer_p in _layers(params["blocks"]):
-        x = block(layer_p, x)
-    return x
+        for layer_p in _layers(params["blocks"]):
+            x = block(layer_p, x)
+        return x, aux_total
+    if cfg.family == "hybrid":
+        block = _remat(lambda p, h: _ssm_block(p, h, cfg), cfg)
+        shared = _remat(lambda p, h: _shared_block(p, h, positions, cfg), cfg)
+        for group_p in _layers(params["blocks"]):
+            for layer_p in _layers(group_p):
+                x = block(layer_p, x)
+            x = shared(params["shared_attn"], x)
+        return x, aux_total
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward (evaluation loss, last-position logits)
 # ---------------------------------------------------------------------------
 
+def _frontend(inputs: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
+    """Patch or frame embeddings (B, S, fd) projected to (B, S, d)."""
+    return inputs.to(cd) @ w.to(cd)
+
+
 def embed_inputs(params, batch: dict, cfg: ModelConfig):
-    """Returns (x (B, S, d), positions (S,))."""
-    _check_ported(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+    """Returns (x (B, S, d), positions (S,)): the token embeddings; for
+    ``patches`` the projected patches before them; for ``frames`` the
+    projected frames alone."""
+    cd = cfg.compute_dtype
+    if cfg.frontend is None:
+        x = embed_lookup(params["embed"], batch["tokens"], cd)
+    elif cfg.frontend == "patches":
+        proj = _frontend(batch["patches"], params["frontend_proj"], cd)
+        text = embed_lookup(params["embed"], batch["tokens"], cd)
+        x = torch.cat([proj, text], dim=1)
+    elif cfg.frontend == "frames":
+        x = _frontend(batch["frames"], params["frontend_proj"], cd)
+    else:
+        raise ValueError(cfg.frontend)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
@@ -275,28 +379,48 @@ def _head_weight(params, cfg: ModelConfig):
     return params["head"], False
 
 
-def forward_logits_last(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, 1, V) at the final position of a full (non-cached)
-    forward pass: what one ``decode_step`` after ``prefill`` of the same
-    prefix must give."""
-    x, positions = embed_inputs(params, batch, cfg)
-    x = _apply_blocks_train(params, x, positions, cfg)
-    x = apply_norm(cfg.norm, params.get("final_norm"), x)
+def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, s, d) -> logits (B, s, V), or (B, s, heads, V) with several
+    heads (MusicGen's codebooks)."""
     head_w, tied = _head_weight(params, cfg)
-    return unembed_logits(head_w, x[:, -1:, :], tied)
+    if cfg.num_lm_heads == 1:
+        return unembed_logits(head_w, x, tied)
+    return torch.stack([unembed_logits(head_w[h], x, False)
+                        for h in range(cfg.num_lm_heads)], dim=2)
+
+
+def forward_logits_last(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, 1, [heads,] V) at the final position of a full
+    (non-cached) forward pass: what one ``decode_step`` after ``prefill``
+    of the same prefix must give."""
+    x, positions = embed_inputs(params, batch, cfg)
+    x, _ = _apply_blocks_train(params, x, positions, cfg)
+    x = apply_norm(cfg.norm, params.get("final_norm"), x)
+    return _logits(params, x[:, -1:, :], cfg)
 
 
 def forward_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Mean-token cross entropy (float32 scalar) of ``batch["labels"]``;
-    labels < 0 are masked out."""
+    """Mean-token cross entropy (float32 scalar) of ``batch["labels"]``
+    (+ the MoE's aux loss); labels < 0 are masked out.  ``patches``: over
+    the text suffix only; several heads: labels (B, S, heads), the mean of
+    the heads' losses."""
     x, positions = embed_inputs(params, batch, cfg)
-    x = _apply_blocks_train(params, x, positions, cfg)
+    x, aux = _apply_blocks_train(params, x, positions, cfg)
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     labels = batch["labels"]
     mask = labels >= 0
+    labels = torch.clamp_min(labels, 0)
     head_w, tied = _head_weight(params, cfg)
-    return softmax_xent_chunked(x, head_w, torch.clamp_min(labels, 0), mask, tied,
-                                cfg.xent_chunk)
+    if cfg.num_lm_heads == 1:
+        if cfg.frontend == "patches":
+            x = x[:, -labels.shape[1]:, :]
+        loss = softmax_xent_chunked(x, head_w, labels, mask, tied, cfg.xent_chunk)
+    else:
+        loss = torch.stack([
+            softmax_xent_chunked(x, head_w[h], labels[..., h], mask[..., h], False,
+                                 cfg.xent_chunk)
+            for h in range(cfg.num_lm_heads)]).mean()
+    return loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -304,15 +428,21 @@ def forward_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def make_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
-    """ParamSpec tree of the decode cache (stacked over layers)."""
-    _check_ported(cfg)
+    """ParamSpec tree of the decode cache (stacked over layers; the
+    hybrid's SSM states over groups and layers, its shared block's KV over
+    groups)."""
     cd = cfg.compute_dtype
     if cfg.family == "ssm":
         return {"ssm": _stack_specs(ssm_lib.ssm_cache_specs(cfg.ssm, batch, cd)._asdict(),
                                     cfg.num_layers)}
-    return {"attn": _stack_specs(
-        attn_lib.kv_cache_specs(cfg.attn_cfg, batch, max_len, cd)._asdict(),
-        cfg.num_layers)}
+    kv = attn_lib.kv_cache_specs(cfg.attn_cfg, batch, max_len, cd)._asdict()
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+        groups = cfg.num_layers // k
+        return {"ssm": _stack_specs(_stack_specs(
+                    ssm_lib.ssm_cache_specs(cfg.ssm, batch, cd)._asdict(), k), groups),
+                "attn": _stack_specs(kv, groups)}
+    return {"attn": _stack_specs(kv, cfg.num_layers)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
@@ -322,22 +452,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
                     make_cache_specs(cfg, batch, max_len))
 
 
+def _ssm_decode_layers(blocks, caches, x, cfg: ModelConfig):
+    """The stacked Mamba2 layers, one token: (x, their new caches stacked)."""
+    new = []
+    for layer_p, c in zip(_layers(blocks), _layers(caches)):
+        hn = apply_norm(cfg.norm, layer_p["norm"], x)
+        y, c2 = ssm_lib.ssm_decode(layer_p["ssm"], hn, SSMCache(**c), cfg.ssm)
+        x = x + y
+        new.append(c2._asdict())
+    return x, _stack(new)
+
+
 def decode_step(params, batch: dict, cache, cfg: ModelConfig):
     """One new token for every sequence in the batch.
 
-    batch: {"tokens": (B, 1)}; cache: from ``init_cache`` or ``prefill``.
-    Returns (logits (B, 1, V), new_cache); the cache passed in is not
-    modified."""
-    _check_ported(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+    batch: {"tokens": (B, 1)}, or {"frames": (B, 1, fd)} for ``frames``;
+    cache: from ``init_cache`` or ``prefill``.  Returns (logits (B, 1,
+    [heads,] V), new_cache); the cache passed in is not modified."""
+    cd = cfg.compute_dtype
+    if cfg.frontend == "frames":
+        x = _frontend(batch["frames"], params["frontend_proj"], cd)
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"], cd)
     if cfg.family == "ssm":
-        new = []
-        for layer_p, c in zip(_layers(params["blocks"]), _layers(cache["ssm"])):
-            hn = apply_norm(cfg.norm, layer_p["norm"], x)
-            y, c2 = ssm_lib.ssm_decode(layer_p["ssm"], hn, SSMCache(**c), cfg.ssm)
+        x, new_ssm = _ssm_decode_layers(params["blocks"], cache["ssm"], x, cfg)
+        new_cache = {"ssm": new_ssm}
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        new_ssm, new_attn = [], []
+        for group_p, ssm_c, attn_c in zip(_layers(params["blocks"]),
+                                          _layers(cache["ssm"]), _layers(cache["attn"])):
+            x, ssm_c2 = _ssm_decode_layers(group_p, ssm_c, x, cfg)
+            a = apply_norm(cfg.norm, shared["attn_norm"], x)
+            y, kv2 = attn_lib.attention_decode(shared["attn"], a, KVCache(**attn_c),
+                                               cfg.attn_cfg)
             x = x + y
-            new.append(c2._asdict())
-        new_cache = {"ssm": _stack(new)}
+            m = apply_norm(cfg.norm, shared["mlp_norm"], x)
+            x = x + mlp_apply(shared["mlp"], m, cfg.mlp_activation)
+            new_ssm.append(ssm_c2)
+            new_attn.append(kv2._asdict())
+        new_cache = {"ssm": _stack(new_ssm), "attn": _stack(new_attn)}
     else:
         new = []
         for layer_p, c in zip(_layers(params["blocks"]), _layers(cache["attn"])):
@@ -346,13 +500,23 @@ def decode_step(params, batch: dict, cache, cfg: ModelConfig):
                                                cfg.attn_cfg)
             x = x + y
             m = apply_norm(cfg.norm, _norm_params(layer_p, "mlp_norm"), x)
-            x = x + mlp_apply(layer_p["mlp"], m, cfg.mlp_activation)
+            x = x + _ffn(layer_p, m, cfg, decode=True)[0]
             new.append(kv2._asdict())
         new_cache = {"attn": _stack(new)}
 
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
-    head_w, tied = _head_weight(params, cfg)
-    return unembed_logits(head_w, x, tied), new_cache
+    return _logits(params, x, cfg), new_cache
+
+
+def _ssm_prefill_layers(blocks, x, cfg: ModelConfig):
+    """The stacked Mamba2 layers over the prompt: (x, their caches stacked)."""
+    states = []
+    for layer_p in _layers(blocks):
+        hn = apply_norm(cfg.norm, layer_p["norm"], x)
+        y, st = ssm_lib.ssm_train_with_state(layer_p["ssm"], hn, cfg.ssm)
+        x = x + y
+        states.append(st)
+    return x, _stack(states)
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, max_len: int | None = None):
@@ -362,21 +526,33 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int | None = None):
     Returns (last_hidden (B, d), cache)."""
     x, positions = embed_inputs(params, batch, cfg)
     max_len = max_len or x.shape[1]
-    caches = []
-    for layer_p in _layers(params["blocks"]):
-        if cfg.family == "ssm":
-            hn = apply_norm(cfg.norm, layer_p["norm"], x)
-            y, st = ssm_lib.ssm_train_with_state(layer_p["ssm"], hn, cfg.ssm)
+    if cfg.family == "ssm":
+        x, states = _ssm_prefill_layers(params["blocks"], x, cfg)
+        cache = {"ssm": states}
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        states, kvs = [], []
+        for group_p in _layers(params["blocks"]):
+            x, st = _ssm_prefill_layers(group_p, x, cfg)
+            a = apply_norm(cfg.norm, shared["attn_norm"], x)
+            y, kv = attn_lib.attention_train_with_kv(shared["attn"], a, positions,
+                                                     cfg.attn_cfg, max_len)
             x = x + y
-            caches.append(st)
-        else:
+            m = apply_norm(cfg.norm, shared["mlp_norm"], x)
+            x = x + mlp_apply(shared["mlp"], m, cfg.mlp_activation)
+            states.append(st)
+            kvs.append(kv)
+        cache = {"ssm": _stack(states), "attn": _stack(kvs)}
+    else:
+        kvs = []
+        for layer_p in _layers(params["blocks"]):
             hn = apply_norm(cfg.norm, _norm_params(layer_p, "attn_norm"), x)
             y, kv = attn_lib.attention_train_with_kv(layer_p["attn"], hn, positions,
                                                      cfg.attn_cfg, max_len)
             x = x + y
             m = apply_norm(cfg.norm, _norm_params(layer_p, "mlp_norm"), x)
-            x = x + mlp_apply(layer_p["mlp"], m, cfg.mlp_activation)
-            caches.append(kv)
-    cache = {"ssm" if cfg.family == "ssm" else "attn": _stack(caches)}
+            x = x + _ffn(layer_p, m, cfg)[0]
+            kvs.append(kv)
+        cache = {"attn": _stack(kvs)}
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return x[:, -1, :], cache

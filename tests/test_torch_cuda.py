@@ -47,7 +47,7 @@ from repro_torch.kernels import ei_score, gp_readout, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import forward_logits_last, init_params  # noqa: E402
-from repro_torch.models.spec import tree_map  # noqa: E402
+from repro_torch.models.spec import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, StaticBatchEngine  # noqa: E402
 from repro_torch.stream import device_churn_trace  # noqa: E402
 
@@ -494,6 +494,12 @@ def _assert_route(got, want):
     (2, 77, 4, 2, 64, None, torch.float32, False),      # not causal
     (1, 150, 4, 2, 256, None, torch.float32, True),     # D 256 (32-key tiles)
     (1, 300, 2, 1, 256, 100, torch.float32, False),     # D 256, a window, not causal
+    # the other families' shapes: zamba2's shared block (32/32, D 80) and
+    # paligemma (8/1, D 256), each in bf16 and float32
+    (1, 256, 32, 32, 80, None, torch.bfloat16, True),
+    (1, 256, 32, 32, 80, None, torch.float32, True),
+    (1, 320, 8, 1, 256, None, torch.bfloat16, True),
+    (1, 320, 8, 1, 256, None, torch.float32, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, rng, B, S, Hq, Hkv, D, window, dtype,
                                               causal):
@@ -803,6 +809,73 @@ def test_smoke_forward_on_card_equals_cpu(cuda, arch, dtype):
         assert routes[ssd_mod.route(dtype)] == cfg.num_layers
     tol = F32 if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+def test_moe_smoke_forward_on_card_equals_cpu(cuda):
+    """qwen3-moe's smoke config in float32: the card's forward (flash in
+    every layer) gives the CPU's last logits and loss to 2e-4, with the same
+    expert ids and keep masks in every routing."""
+    from repro_torch.models import forward_loss
+    from repro_torch.models import moe as moe_mod
+    smoke = get_smoke_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(smoke, compute_dtype=torch.float32, use_pallas=True)
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    route = moe_mod._route
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        log = []
+
+        def recording(w, x, c, log=log):
+            gates, ids, aux = route(w, x, c)
+            log.append((ids.cpu(), moe_mod.dispatch(ids, c, c.capacity)[1].cpu()))
+            return gates, ids, aux
+        moe_mod._route = recording
+        try:
+            b = {k: v.to(dev) for k, v in batch.items()}
+            f0 = flash_mod.launches
+            logits = forward_logits_last(p, {"tokens": b["tokens"]}, cfg)
+            loss = forward_loss(p, b, cfg)
+            assert flash_mod.launches - f0 == (2 * cfg.num_layers if dev == "cuda" else 0)
+        finally:
+            moe_mod._route = route
+        out[dev] = (logits.cpu(), loss.cpu(), log)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **F32)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], **F32)
+    assert len(out["cuda"][2]) == len(out["cpu"][2]) == 2 * cfg.num_layers
+    for (a, b), (c, d) in zip(out["cuda"][2], out["cpu"][2]):
+        assert torch.equal(a, c) and torch.equal(b, d)
+
+
+def test_hybrid_prefill_and_decode_on_card_equal_cpu(cuda):
+    """zamba2's smoke config in float32: prefill (the nested cache) and one
+    decode step on the card give the CPU's hidden state, cache and logits
+    to 2e-4; the full forward's kernels on the card (an SSD call a Mamba2
+    layer, a flash call a group) give the CPU's last logits too."""
+    from repro_torch.models import decode_step, prefill
+    smoke = get_smoke_config("zamba2-2.7b")
+    cfg = dataclasses.replace(smoke, compute_dtype=torch.float32, use_pallas=True,
+                              ssm=smoke.ssm._replace(use_pallas=True))
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        t = tokens.to(dev)
+        h, cache = prefill(p, {"tokens": t[:, :-1]}, cfg, max_len=56)
+        logits, cache2 = decode_step(p, {"tokens": t[:, -1:]}, cache, cfg)
+        f0, s0 = flash_mod.launches, ssd_mod.launches
+        fwd = forward_logits_last(p, {"tokens": t}, cfg)
+        launched = (flash_mod.launches - f0, ssd_mod.launches - s0)
+        assert launched == ((cfg.num_attn_layers, cfg.num_layers) if dev == "cuda"
+                            else (0, 0))
+        out[dev] = _to((h, cache2, logits, fwd), "cpu")
+    assert out["cuda"][1]["ssm"]["state"].shape[:2] == (2, 2)    # (groups, k)
+    for got, want in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), **F32)
 
 
 def test_engine_on_card_equals_cpu(cuda):

@@ -35,6 +35,7 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.sharding.rules import ParamSpec as JaxParamSpec  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.data import random_batch, split_last  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
@@ -45,9 +46,11 @@ from repro_torch.models import (  # noqa: E402
     forward_loss,
     init_cache,
     init_params,
+    make_cache_specs,
     model_specs,
     prefill,
 )
+from repro_torch.models.moe import one_group  # noqa: E402
 from repro_torch.models.spec import ParamSpec, tree_leaves  # noqa: E402
 
 F32 = dict(atol=2e-4, rtol=2e-4)
@@ -402,9 +405,32 @@ def _tokens(cfg, B, S, seed=0):
             rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
 
 
+def _inputs(cfg, B, S, seed=0) -> dict:
+    """``data.random_batch`` of S positions from ``seed``, with the labels
+    of sequence 0's first 5 positions masked (-1)."""
+    batch = random_batch(cfg, B, S, np.random.default_rng(seed))
+    batch["labels"][0, :5] = -1
+    return batch
+
+
+def _jax(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch: dict, device="cpu") -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
 def _seq_len(arch: str) -> int:
     # past h2o-danube's smoke window (64), so the window masks
     return 96 if arch == "h2o-danube-3-4b" else 64
+
+
+def _prefill_seq_len(arch: str) -> int:
+    """S for the prefill-then-decode tests at B 2: a moe's prefill of S - 1
+    positions must fill whole groups of its smoke group size, 32."""
+    return 65 if jax_smoke_config(arch).moe is not None else _seq_len(arch)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -412,10 +438,8 @@ def _seq_len(arch: str) -> int:
 def test_forward_matches_reference_pallas_path(arch, dtype):
     (jcfg, jparams), (tcfg, tparams) = _twins(arch, dtype)
     assert tcfg.compute_dtype == DTYPES[dtype][1]
-    tokens, labels = _tokens(tcfg, 2, _seq_len(arch))
-    labels[0, :5] = -1                                   # masked positions
-    jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
-    tbatch = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+    batch = _inputs(tcfg, 2, _seq_len(arch))
+    jbatch, tbatch = _jax(batch), _torch(batch)
     tol = DTYPES[dtype][2]
 
     got = forward_logits_last(tparams, tbatch, tcfg)
@@ -439,22 +463,18 @@ def test_prefill_and_decode_match_reference(arch):
     """prefill's last hidden state and cache, then one decode step's logits
     and cache, equal the reference's (float32)."""
     (jcfg, jparams), (tcfg, tparams) = _twins(arch, "float32", seed=1)
-    tokens, _ = _tokens(tcfg, 2, _seq_len(arch), seed=1)
-    S = tokens.shape[1]
-    jh, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :-1])},
-                                jcfg, None, max_len=S + 8)
-    th, tcache = prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :-1])},
-                         tcfg, max_len=S + 8)
+    S = _prefill_seq_len(arch)
+    batch = _inputs(tcfg, 2, S, seed=1)
+    head, tail = split_last(batch)
+    jh, jcache = jmodel.prefill(jparams, _jax(head), jcfg, None, max_len=S + 8)
+    th, tcache = prefill(tparams, _torch(head), tcfg, max_len=S + 8)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **F32)
     jtree, ttree = _np_tree(jcache), jax.tree.map(lambda t: t.numpy(), tcache)
     assert jax.tree.structure(jtree) == jax.tree.structure(ttree)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **F32), jtree, ttree)
 
-    last = tokens[:, -1:]
-    jlog, jcache2 = jmodel.decode_step(jparams, {"tokens": jnp.asarray(last)},
-                                       jcache, jcfg, None)
-    tlog, tcache2 = decode_step(tparams, {"tokens": torch.from_numpy(last)},
-                                tcache, tcfg)
+    jlog, jcache2 = jmodel.decode_step(jparams, _jax(tail), jcache, jcfg, None)
+    tlog, tcache2 = decode_step(tparams, _torch(tail), tcache, tcfg)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **F32)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **F32),
                  _np_tree(jcache2), jax.tree.map(lambda t: t.numpy(), tcache2))
@@ -469,21 +489,18 @@ def test_bf16_prefill_and_decode_match_reference(arch):
     decode round where the reference's do (attention probabilities, the SSD
     products), so hidden state, logits and caches agree to BF16."""
     (jcfg, jparams), (tcfg, tparams) = _twins(arch, "bfloat16", seed=1)
-    tokens, _ = _tokens(tcfg, 2, _seq_len(arch), seed=1)
-    S = tokens.shape[1]
-    jh, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :-1])},
-                                jcfg, None, max_len=S + 8)
-    th, tcache = prefill(tparams, {"tokens": torch.from_numpy(tokens[:, :-1])},
-                         tcfg, max_len=S + 8)
+    S = _prefill_seq_len(arch)
+    batch = _inputs(tcfg, 2, S, seed=1)
+    head, tail = split_last(batch)
+    jh, jcache = jmodel.prefill(jparams, _jax(head), jcfg, None, max_len=S + 8)
+    th, tcache = prefill(tparams, _torch(head), tcfg, max_len=S + 8)
     assert th.dtype == torch.bfloat16
     np.testing.assert_allclose(th.float().numpy(), _f32(jh), **BF16)
     jtree, ttree = _np_tree(jcache), _torch_np(tcache)
     assert jax.tree.structure(jtree) == jax.tree.structure(ttree)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **BF16), jtree, ttree)
-    jlog, jcache2 = jmodel.decode_step(jparams, {"tokens": jnp.asarray(tokens[:, -1:])},
-                                       jcache, jcfg, None)
-    tlog, tcache2 = decode_step(tparams, {"tokens": torch.from_numpy(tokens[:, -1:])},
-                                tcache, tcfg)
+    jlog, jcache2 = jmodel.decode_step(jparams, _jax(tail), jcache, jcfg, None)
+    tlog, tcache2 = decode_step(tparams, _torch(tail), tcache, tcfg)
     np.testing.assert_allclose(tlog.float().numpy(), _f32(jlog), **BF16)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(b, a, **BF16),
                  _np_tree(jcache2), _torch_np(tcache2))
@@ -535,15 +552,45 @@ def _kernel_route(cfg):
 def test_prefill_decode_matches_full_forward(arch):
     """decode(prefill(x[:S-1]), x[S-1]) logits == full forward logits at S
     (``test_models.py``'s case, in the configs' own bfloat16), the forward
-    on the kernel route."""
+    on the kernel route.  A moe at B 1 x S 129 (128 prefilled), one group
+    a pass with a slot for every token (``one_group``)."""
     cfg = _kernel_route(get_smoke_config(arch))
+    B, S = (1, 129) if cfg.moe is not None else (2, 48)
+    cfg = one_group(cfg, B * S)
     params = init_params(cfg, 1, device="cpu")
-    tokens, _ = _tokens(cfg, 2, 48)
-    full = torch.from_numpy(tokens)
-    want = forward_logits_last(params, {"tokens": full}, cfg)
-    _, cache = prefill(params, {"tokens": full[:, :-1]}, cfg, max_len=56)
-    got, _ = decode_step(params, {"tokens": full[:, -1:]}, cache, cfg)
+    batch = _torch(_inputs(cfg, B, S))
+    head, tail = split_last(batch)
+    want = forward_logits_last(params, batch, cfg)
+    _, cache = prefill(params, head, cfg, max_len=S + 8)
+    got, _ = decode_step(params, tail, cache, cfg)
+    assert got.shape == want.shape
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **DECODE)
+
+
+def test_hybrid_cache_is_nested_as_the_reference():
+    """zamba2's cache: the Mamba2 states stacked (groups, k, ...), the
+    shared block's KV stacked (groups, ...), in ``make_cache_specs``,
+    ``init_cache`` and ``prefill`` alike, with the reference's shapes; the
+    reference's prefill cache, carried across by ``convert.model_params``,
+    decodes in the port to the reference's logits (float32)."""
+    (jcfg, jparams), (tcfg, tparams) = _twins("zamba2-2.7b", "float32", seed=3)
+    groups, k = tcfg.num_layers // tcfg.hybrid_attn_every, tcfg.hybrid_attn_every
+    batch = _inputs(tcfg, 2, 40, seed=3)
+    head, tail = split_last(batch)
+    want = {p: v[0] for p, v in _shapes(jmodel.make_cache_specs(jcfg, 2, 48),
+                                        JaxParamSpec).items()}
+    assert {p: v[0] for p, v in _shapes(make_cache_specs(tcfg, 2, 48), ParamSpec).items()} \
+        == want
+    assert {p: v[0] for p, v in _shapes(init_cache(tcfg, 2, 48, device="cpu"),
+                                        torch.Tensor).items()} == want
+    _, cache = prefill(tparams, _torch(head), tcfg, max_len=48)
+    assert {p: v[0] for p, v in _shapes(cache, torch.Tensor).items()} == want
+    assert want[("ssm", "state")][:2] == (groups, k) and want[("attn", "k")][0] == groups
+    _, jcache = jmodel.prefill(jparams, _jax(head), jcfg, None, max_len=48)
+    carried = convert.model_params(jax.tree.map(np.asarray, jcache), "cpu")
+    got, _ = decode_step(tparams, _torch(tail), carried, tcfg)
+    jlog, _ = jmodel.decode_step(jparams, _jax(tail), jcache, jcfg, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jlog), **F32)
 
 
 def test_sliding_window_ring_buffer_decode():
@@ -594,16 +641,27 @@ def _shapes(specs, leaf_type):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_specs_and_param_count_match_reference(arch):
     """Every full and smoke config: the same parameter tree (key paths,
-    shapes, logical axes) and ``param_count`` as the reference, from the
-    specs alone."""
+    shapes, logical axes), ``param_count``, ``active_param_count`` and
+    attention layers as the reference, from the specs alone."""
     for port, ref in ((get_config(arch), jax_config(arch)),
                       (get_smoke_config(arch), jax_smoke_config(arch))):
         assert _shapes(model_specs(port), ParamSpec) == \
             _shapes(jmodel.model_specs(ref), JaxParamSpec)
         assert port.param_count() == ref.param_count()
+        assert port.active_param_count() == ref.active_param_count()
+        assert (port.uses_attention, port.num_attn_layers) == \
+            (ref.uses_attention, ref.num_attn_layers)
         for f in dataclasses.fields(port):
             if f.name not in ("compute_dtype", "param_dtype", "ssm", "moe"):
                 assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        for f in ("ssm", "moe"):
+            want = getattr(ref, f)
+            assert (getattr(port, f) is None) == (want is None), f
+            if want is not None:   # less the reference's lax.scan unroll
+                assert getattr(port, f)._asdict() == \
+                    {k: v for k, v in want._asdict().items() if k != "unroll"}, f
+                if f == "moe":
+                    assert port.moe.capacity == want.capacity
 
 
 def test_init_params_shapes_and_dtypes():
@@ -620,21 +678,14 @@ def test_init_params_shapes_and_dtypes():
                        torch.ones_like(params["blocks"]["attn"]["q_norm"]["scale"]))
 
 
-def test_unported_architectures_raise():
-    for arch in ("zamba2-2.7b", "arctic-480b", "qwen3-moe-235b-a22b",
-                 "paligemma-3b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            get_smoke_config(arch)
-    with pytest.raises(KeyError):
-        get_config("no-such-model")
-    for family in ("moe", "hybrid", "vlm", "audio"):
-        cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), family=family)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            model_specs(cfg)
-    assert set(ARCH_IDS) == {"mamba2-1.3b", "qwen3-4b", "qwen3-8b", "olmo-1b",
-                             "h2o-danube-3-4b"}
+def test_arch_ids_are_the_references():
+    """Every architecture of the reference is ported, in its order; an
+    unknown one raises ``KeyError``."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for fn in (get_config, get_smoke_config):
+        with pytest.raises(KeyError):
+            fn("no-such-model")
 
 
 def test_model_config_maps_the_reference_fields():

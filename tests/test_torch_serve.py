@@ -128,6 +128,80 @@ def test_engine_tokens_equal_reference():
     assert port.slot_utilization == ref.slot_utilization < 1.0
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen3-moe-235b-a22b", "arctic-480b"])
+def test_engine_serves_hybrid_and_moe_as_reference(arch):
+    """The hybrid and the two moe configs (smoke widths, float32): the
+    port's engine emits the reference's tokens with the same counters.  The
+    waves hold 24, 32 and 7 prompt tokens: each a whole group of the moe's
+    32, or fewer (one group)."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype=jnp.float32)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = convert.model_params(jax.tree.map(np.asarray, jparams), "cpu")
+    tcfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=torch.float32)
+    ref = JaxEngine(jcfg, jparams, JaxServeConfig(batch_slots=2, max_len=128))
+    port = StaticBatchEngine(tcfg, tparams, ServeConfig(batch_slots=2, max_len=128),
+                             device="cpu")
+    for r in _requests(JaxRequest):
+        ref.submit(r)
+    for r in _requests(Request):
+        port.submit(r)
+    want = {r.request_id: r.output for r in ref.run()}
+    assert {r.request_id: r.output for r in port.run()} == want
+    for key in ("waves", "decode_steps", "slot_steps_used", "slot_steps_total"):
+        assert port.stats[key] == ref.stats[key], key
+
+
+def test_moe_wave_that_splits_a_group_raises():
+    """A moe wave of 2 x 20 prompt tokens: 40 is no multiple of the smoke
+    group (32), which the reference asserts and the port raises on."""
+    cfg = get_smoke_config("qwen3-moe-235b-a22b")
+    eng = StaticBatchEngine(cfg, init_params(cfg, 0, device="cpu"),
+                            ServeConfig(batch_slots=2, max_len=64), device="cpu")
+    for i in range(2):
+        eng.submit(Request(i, np.arange(20, dtype=np.int32), max_new_tokens=2))
+    with pytest.raises(ValueError, match="must divide group size 32"):
+        eng.run()
+
+
+def test_serve_decode_example():
+    """The serving demo on the CPU against the reference: paligemma prefills
+    its 16 patches and the 12-token prompts, then decodes 6 tokens a
+    sequence; the reference's ``prefill`` and ``decode_step``, given the
+    demo's parameters, prompts and cache size, decode the same greedy
+    tokens (the configs' bfloat16, run op by op).  The demo's cache also
+    holds the patches (16 + 12 + 6 + 8 positions); the reference's example
+    sizes it for the prompt and the new tokens only (26 positions for 28
+    prefilled), so its decode steps see a ring buffer that has dropped the
+    oldest patches, and there sequence 1's greedy tokens depart from the
+    demo's from the third on.  musicgen (frames) is refused."""
+    from repro_torch.examples import serve_decode
+    from repro_torch.models.spec import tree_map
+    out = serve_decode.main(["--arch", "paligemma-3b", "--device", "cpu", "--batch", "2",
+                             "--prompt-len", "12", "--new-tokens", "6"])
+    prompts = out["prompts"]
+    assert out["tokens"].shape == (2, 6) and prompts["patches"].shape == (2, 16, 48)
+    jcfg = jax_smoke_config("paligemma-3b")
+    jparams = tree_map(lambda t: jnp.asarray(t.float().numpy()), out["params"],
+                       lambda x: isinstance(x, torch.Tensor))
+    jprompts = {k: jnp.asarray(v.numpy()) for k, v in prompts.items()}
+
+    def reference_tokens(max_len):
+        _, cache = jax_model.prefill(jparams, jprompts, jcfg, None, max_len=max_len)
+        tok, toks = jprompts["tokens"][:, -1:], []
+        for _ in range(6):
+            logits, cache = jax_model.decode_step(jparams, {"tokens": tok}, cache, jcfg,
+                                                  None)
+            tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+            toks.append(np.asarray(tok[:, 0]))
+        return np.stack(toks, axis=1)
+
+    assert out["max_len"] == 16 + 12 + 6 + 8
+    np.testing.assert_array_equal(reference_tokens(out["max_len"]), out["tokens"])
+    assert not np.array_equal(reference_tokens(12 + 6 + 8), out["tokens"])
+    with pytest.raises(SystemExit, match="token-input"):
+        serve_decode.main(["--arch", "musicgen-medium", "--device", "cpu"])
+
+
 def _silu_as_xla(x):
     """x * sigmoid(x) rounded as XLA's expansion of ``jax.nn.silu`` rounds
     it: exp(-x), 1 + exp(-x), its reciprocal and the product, each to x's

@@ -363,8 +363,10 @@ def test_no_tpu_constant_in_the_port():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_analytic_path_equals_reference(arch, reference_constants):
     got, want = t_cm.CostModel(), j_cm.CostModel()
-    cfg = get_config(arch)
-    assert cfg.active_param_count() == cfg.param_count() == j_get_config(arch).param_count()
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    assert (cfg.active_param_count() < cfg.param_count()) == (cfg.moe is not None)
     assert got._probe(arch, "train_4k") is None
     for shape in SHAPES:
         for chips in (1, 16, 256):
