@@ -33,6 +33,27 @@ Run from the root of a checkout on a machine with one CUDA card and
                  and every decision launched the EIrate kernel once
   episode_dense  the same on a 1 x 2,048 prior, which takes the dense GP engine
   baselines      round_robin and random on the Azure workload, card vs CPU
+  batched        the batched sweep engine (repro_torch.core.simulate_batch),
+                 its step loop under torch.cuda.set_sync_debug_mode("error")
+                 (the mode read inside it): (a) Fig. 5 --engine batched at
+                 the reference driver's full protocol, M 1-16 (1, 2, 4, 8,
+                 16) x 16 seeds of the 50 x 50 Matern problem, 80 episodes
+                 of 2,516 steps in one call, every row, the wall and us an
+                 episode, no launch of kernels 1-4; (b) five of its episodes
+                 (seed 0 at M 1, 4, 16; two z overrides) equal to the event
+                 engine's on the card (models, hints, devices; times within
+                 1e-5), and those five as a batch on the CPU equal to their
+                 rows of the card's grid, bit for bit; (c) Fig. 2 and 4
+                 --engine batched at 8 seeds: every mdmt and round_robin
+                 episode equal to the event engine's, the random ones held
+                 to their invariants;
+                 (d) B 1,024 (M 1-16 x 64 seeds) in one call, its wall, us
+                 an episode and peak memory, (a)'s episodes equal inside it;
+                 (e) the quickstart example on the card and the CPU, equal
+                 lines; (f) attention_decode(write_back=False) at qwen3-4b's
+                 layer-0 shape (B 4, a 2,048-slot cache, before and after
+                 the ring wraps): float32 against write_back=True and the
+                 CPU at DATA_TOL, bf16 against its own float32 step
   figures        the port's paper-figure drivers (repro_torch.benchmarks,
                  Fig. 2-5) on the card, Fig. 2-4 at the JAX drivers' full
                  protocol (Fig. 2 and 4: 8 seeds; Fig. 3: 5), Fig. 5 at
@@ -391,6 +412,25 @@ FAMILY_SERVE = {"zamba2-2.7b": SERVE_PROMPTS, "qwen3-moe-235b-a22b": (128, 384, 
 FAMILY_CHECK = ("zamba2-2.7b", "paligemma-3b", "musicgen-medium", "qwen3-moe-235b-a22b")
 FRAMES_PROMPT = 512            # musicgen's prefill, frames a sequence
 EXAMPLE_BATCH, EXAMPLE_PROMPT = 4, 256   # paligemma's serve_decode run
+
+# batched: the batched sweep engine (core/sim_batched.py) on the card.  (a)
+# Fig. 5 --engine batched at the reference driver's full protocol: M in
+# BATCHED_DEVICES x BATCHED_SEEDS seeds of the 50 x 50 Matern problem (80
+# episodes, T = 2,516 steps); (b) its episodes BATCHED_EVENT against the
+# event engine (seed 0 at M 1, 4, 16; two z overrides); (c) Fig. 2 and 4
+# --engine batched at BATCHED_FIG_SEEDS seeds; (d) BATCHED_SWEEP: M 1-16 x
+# 64 seeds, B 1,024, DESIGN.md §6's scale; (e) the quickstart; (f) one
+# write_back=False decode step at qwen3-4b's layer-0 attention shape, bf16,
+# a cache of BATCHED_DECODE_CACHE slots for B 4
+BATCHED_DEVICES = (1, 2, 4, 8, 16)
+BATCHED_SEEDS = 16
+BATCHED_EVENT = ((1, 0), (4, 0), (16, 0), (4, 1), (16, 2))   # (M, seed)
+BATCHED_FIG_SEEDS = 8
+BATCHED_SWEEP = (tuple(range(1, 17)), 64)
+BATCHED_DECODE_CACHE = 2048
+BATCHED_TIME_TOL = 1e-5        # start and end times, event (float64) vs batched (float32)
+BF16_BRANCH_RATIO = 2.0        # (f): bf16 write_back=False's error against its float32
+                               # step, at most this times write_back=True's
 
 # figures: the port's paper-figure drivers, seeds per figure (Fig. 5:
 # repeats of the 50 x 50 Matern problem at each M of FIG5_DEVICES); the CPU
@@ -2573,6 +2613,300 @@ def figure_rows(fn, *argv) -> tuple[list[dict], float]:
     return rows, seconds
 
 
+def captured(mod, calls: list):
+    """Wraps ``mod.simulate_batch`` to append each call's (problem, batch)
+    to ``calls``; returns the original."""
+    orig = mod.simulate_batch
+
+    def run(problem, specs, *a, **kw):
+        batch = orig(problem, specs, *a, **kw)
+        calls.append((problem, batch))
+        return batch
+    mod.simulate_batch = run
+    return orig
+
+
+def trial_logs(batch, i) -> list:
+    return list(zip(batch.trial_model[i].tolist(), batch.trial_user[i].tolist(),
+                    batch.trial_device[i].tolist()))
+
+
+def held_to_event(name, batch, i, res) -> dict:
+    """Batched episode i against an event-engine episode: models, hints and
+    devices equal, start and end times within BATCHED_TIME_TOL."""
+    check(trial_logs(batch, i) == [(t.model, t.user_hint, t.device) for t in res.trials],
+          f"{name}: the batched episode's trials differ from the event engine's")
+    err = 0.0
+    for key, attr in (("trial_start", "start"), ("trial_end", "end")):
+        want = np.asarray([getattr(t, attr) for t in res.trials])
+        got = getattr(batch, key)[i].astype(np.float64)
+        check(bool(np.all(np.abs(got - want) <= BATCHED_TIME_TOL * (1 + np.abs(want)))),
+              f"{name}: {key} differs from the event engine's beyond {BATCHED_TIME_TOL}")
+        err = max(err, float(np.abs(got - want).max()))
+    return dict(trials=len(res.trials), max_abs_time_err=err,
+                decisions=int(batch.decisions[i]), event_decisions=res.decisions)
+
+
+def random_invariants(name, batch, i) -> None:
+    """A random-baseline episode: each model launched and observed once, the
+    warm start first, each policy pick a model of its hint's tenant, a
+    tenant that still had work."""
+    prob = batch.problem
+    N = prob.num_users
+    m = prob.num_models // N
+    models, hints = batch.trial_model[i], batch.trial_user[i]
+    observed = batch.obs_model[i][batch.obs_model[i] >= 0]
+    check(sorted(models.tolist()) == list(range(prob.num_models))
+          and sorted(observed.tolist()) == list(range(prob.num_models)),
+          f"{name}: a model was not launched and observed exactly once")
+    left = np.ones((N, m), bool)
+    for x, u in zip(models.tolist(), hints.tolist()):
+        check(u == -2 or (u >= 0 and left[u].any() and x // m == u),
+              f"{name}: pick {x} under hint {u} breaks the invariants")
+        left[x // m, x % m] = False
+
+
+def batched_phase(dev, counters):
+    """The batched sweep engine on the card, (a)-(f) of BATCHED_*: the step
+    loop under torch.cuda.set_sync_debug_mode("error") (read inside it), no
+    launch of kernels 1-4 in (a) and (d), every deterministic episode equal
+    to the event engine's, the card's batch equal to the CPU's bit for bit."""
+    import io
+
+    from repro_torch.benchmarks import fig2_single_device as f2
+    from repro_torch.benchmarks import fig4_four_devices as f4
+    from repro_torch.benchmarks import fig5_synthetic_speedup as f5
+    from repro_torch.core import (EpisodeSpec, simulate, simulate_batch,
+                                  synthetic_matern_problem, synthetic_matern_z)
+    from repro_torch.core import sim_batched
+    from repro_torch.examples import quickstart
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.spec import init_from_specs
+
+    t_phase = time.perf_counter()
+    modes = []
+    loop = sim_batched._step_loop
+
+    def watched_loop(c, s, T):
+        modes.append(torch.cuda.get_sync_debug_mode() if s["P"].is_cuda else None)
+        return loop(c, s, T)
+    sim_batched._step_loop = watched_loop
+    out = {}
+    try:
+        # warm-up on a small problem: CUDA's first launches stay out of (a)
+        small = synthetic_matern_problem(3, 8, seed=5)
+        warm = simulate_batch(small, [EpisodeSpec("mdmt", 2, 0)], device=dev)
+        out["warmup_s"] = warm.wall_seconds
+
+        # (a) the full Fig-5 grid, one call
+        calls = []
+        orig = captured(f5, calls)
+        saved_devices = f5.DEVICES
+        f5.DEVICES = BATCHED_DEVICES
+        reset(counters)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                f5.run_batched(BATCHED_SEEDS, device=dev)
+        finally:
+            f5.DEVICES, f5.simulate_batch = saved_devices, orig
+        launches_a = read(counters)
+        check(not any(launches_a.values()),
+              f"batched (a): kernels launched in the grid's call: {launches_a}")
+        prob, grid = calls[0]
+        B = grid.num_episodes
+        check(B == len(BATCHED_DEVICES) * BATCHED_SEEDS
+              and grid.obs_model.shape[1] == prob.num_models + max(BATCHED_DEVICES),
+              f"batched (a): {B} episodes, {grid.obs_model.shape[1]} steps")
+        rows = [dict(name=n, us_per_call=float(us), derived=dict(
+            kv.split("=", 1) for kv in d.split(";")))
+            for n, us, d in (ln.split(",", 2) for ln in buf.getvalue().splitlines())]
+        for r in rows[:-1]:
+            check(np.isfinite(float(r["derived"]["t_reach_0p01"])),
+                  f"batched (a): {r['name']} did not reach regret 0.01")
+        for i in range(B):
+            check(sorted(grid.trial_model[i].tolist()) == list(range(prob.num_models)),
+                  f"batched (a): episode {i} did not launch every model once")
+        out["a"] = dict(problem="synthetic_matern_problem(50, 50, seed=0), z per seed "
+                        "from synthetic_matern_z", devices=list(BATCHED_DEVICES),
+                        seeds=BATCHED_SEEDS, episodes=B, steps=int(grid.obs_model.shape[1]),
+                        rows=rows, wall_s=grid.wall_seconds,
+                        us_per_episode=grid.wall_seconds / B * 1e6,
+                        launches_kernels_1_4=launches_a)
+
+        # (b) grid episodes against the event engine; the same batch on the CPU
+        idx = [BATCHED_DEVICES.index(M) * BATCHED_SEEDS + seed for M, seed in BATCHED_EVENT]
+        specs = [grid.specs[i] for i in idx]
+        event = []
+        t0 = time.perf_counter()
+        for (M, seed), i in zip(BATCHED_EVENT, idx):
+            zprob = dataclasses.replace(prob, z_true=np.asarray(grid.specs[i].z_true,
+                                                                prob.z_true.dtype))
+            res = simulate(zprob, "mdmt", num_devices=M, seed=seed, device=dev)
+            event.append(dict(M=M, seed=seed, **held_to_event(
+                f"batched (b) M {M} seed {seed}", grid, i, res)))
+        event_s = time.perf_counter() - t0
+        # the five as a batch on the CPU against their rows of the card's
+        # grid (the same Mmax and T; an episode's steps do not depend on the
+        # other episodes of its batch, as (d) shows on the card)
+        cpu5 = simulate_batch(prob, specs, device="cpu")
+        for key in ("trial_model", "trial_user", "trial_device", "trial_start",
+                    "trial_end", "obs_model", "obs_time", "inst_regret",
+                    "cum_regret", "decisions", "end_time"):
+            check(np.array_equal(getattr(cpu5, key), getattr(grid, key)[idx]),
+                  f"batched (b): {key} of the CPU's batch differs from the card's")
+        out["b"] = dict(episodes=event, event_wall_s=event_s,
+                        cpu_wall_s=cpu5.wall_seconds, card_equals_cpu_bitwise=True)
+
+        # (c) Fig. 2 and 4 --engine batched, against the event engine
+        figs = {}
+        for fig, main_fn in (("fig2", f2.main), ("fig4", f4.main)):
+            calls = []
+            orig = captured(f2, calls)
+            try:
+                rows, seconds = figure_rows(lambda: main_fn(device=dev), "--engine",
+                                            "batched", "--seeds", str(BATCHED_FIG_SEEDS))
+            finally:
+                f2.simulate_batch = orig
+            t0 = time.perf_counter()
+            held_n, max_err = 0, 0.0
+            for problem, batch in calls:
+                for i, spec in enumerate(batch.specs):
+                    name = f"batched (c) {fig} {problem.name} {spec.policy}"
+                    if spec.policy == "random":
+                        random_invariants(name, batch, i)
+                        continue
+                    res = simulate(problem, spec.policy, num_devices=spec.num_devices,
+                                   seed=spec.seed, device=dev)
+                    max_err = max(max_err, held_to_event(name, batch, i, res)
+                                  ["max_abs_time_err"])
+                    held_n += 1
+            figs[fig] = dict(rows=rows, seconds=seconds, calls=len(calls),
+                             batched_wall_s=sum(b.wall_seconds for _, b in calls),
+                             episodes_held_to_event=held_n, max_abs_time_err=max_err,
+                             event_check_s=time.perf_counter() - t0)
+        out["c"] = figs
+
+        # (d) DESIGN.md §6's scale: B 1,024 in one call
+        Ms, seeds = BATCHED_SWEEP
+        zs = [synthetic_matern_z(50, 50, seed=s) for s in range(seeds)]
+        sweep_specs = [EpisodeSpec("mdmt", M, s, z_true=zs[s]) for M in Ms for s in range(seeds)]
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        reset(counters)
+        sweep = simulate_batch(prob, sweep_specs, device=dev)
+        launches_d = read(counters)
+        check(not any(launches_d.values()),
+              f"batched (d): kernels launched in the sweep: {launches_d}")
+        peak = torch.cuda.max_memory_allocated()
+        # the episodes (a) also ran, at other batch positions: equal logs
+        same = [(Ms.index(M) * seeds + s, BATCHED_DEVICES.index(M) * BATCHED_SEEDS + s)
+                for M in BATCHED_DEVICES for s in range(BATCHED_SEEDS)]
+        for key in ("trial_model", "trial_user", "trial_device", "trial_end",
+                    "inst_regret", "cum_regret"):
+            check(all(np.array_equal(getattr(sweep, key)[i], getattr(grid, key)[j])
+                      for i, j in same),
+                  f"batched (d): {key} of (a)'s episodes differs inside the sweep")
+        tt = sweep.time_to_instantaneous(0.01).reshape(len(Ms), seeds)
+        check(bool(np.isfinite(tt).all()), "batched (d): an episode never reached 0.01")
+        out["d"] = dict(devices=list(Ms), seeds=seeds, episodes=sweep.num_episodes,
+                        wall_s=sweep.wall_seconds,
+                        us_per_episode=sweep.wall_seconds / sweep.num_episodes * 1e6,
+                        max_memory_allocated=peak, memory_before=base_mem,
+                        launches_kernels_1_4=launches_d, equals_a_episodes=len(same),
+                        t_reach_0p01_mean_by_M={str(M): float(tt[k].mean())
+                                                for k, M in enumerate(Ms)})
+        del sweep
+        torch.cuda.empty_cache()
+    finally:
+        sim_batched._step_loop = loop
+    check(all(mode == 2 for mode in modes if mode is not None)
+          and sum(mode is not None for mode in modes) >= 4,
+          f"batched: the step loop ran under sync debug modes {modes}")
+    out["step_loop_sync_debug_modes"] = sorted({m for m in modes if m is not None})
+
+    # (e) the quickstart's entry point on the card and on the CPU
+    lines = {}
+    reset(counters)
+    for where in (dev, "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            quickstart.main(device=where)
+        lines[str(where)] = (buf.getvalue().splitlines(), time.perf_counter() - t0)
+        if where == dev:
+            launches_e = read(counters)
+    check(lines[str(dev)][0] == lines["cpu"][0],
+          f"batched (e): the quickstart's lines differ, card {lines[str(dev)][0]} "
+          f"CPU {lines['cpu'][0]}")
+    check(launches_e["eirate"] > 0 and launches_e["gp_readout"] > 0,
+          f"batched (e): the quickstart on the card launched {launches_e}")
+    out["e"] = dict(lines=lines[str(dev)][0], card_s=lines[str(dev)][1],
+                    cpu_s=lines["cpu"][1], launches=launches_e, card_equals_cpu=True)
+
+    # (f) one write_back=False decode step at qwen3-4b layer 0's attention
+    # shape: float32 held to DATA_TOL against write_back=True and the CPU
+    acfg = get_config("qwen3-4b").attn_cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_from_specs(attn.attn_specs(acfg), gen, device=dev)
+    cpu_p = tensors_to(p, "cpu")
+    B, size = 4, BATCHED_DECODE_CACHE
+    shape = (B, size, acfg.num_kv_heads, acfg.head_dim)
+    k = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    v = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    x = torch.randn((B, 1, acfg.d_model), generator=gen, device=dev).bfloat16()
+
+    def step(params, dtype, where, length, write_back):
+        cache = attn.KVCache(k.to(where, dtype), v.to(where, dtype),
+                             torch.tensor(length, dtype=torch.int32, device=where))
+        return attn.attention_decode(params, x.to(where, dtype), cache, acfg,
+                                     write_back=write_back)
+
+    cases = {}
+    for length in (size // 2 + 1, size + 5):        # before and after the ring wraps
+        y32, c32 = step(p, torch.float32, dev, length, False)
+        wb32, cwb32 = step(p, torch.float32, dev, length, True)
+        slot = length % size
+        check(c32.k.shape == (B, 1, acfg.num_kv_heads, acfg.head_dim)
+              and torch.equal(cwb32.k[:, slot:slot + 1], c32.k)
+              and torch.equal(cwb32.v[:, slot:slot + 1], c32.v),
+              f"batched (f): length {length}, the returned new-token k, v")
+        case = dict(float32=dict(
+            vs_write_back=held(f"batched (f) {length} float32 vs write_back", y32, wb32),
+            card_vs_cpu=held(f"batched (f) {length} float32 card vs CPU", y32.cpu(),
+                             step(cpu_p, torch.float32, "cpu", length, False)[0])))
+        # bf16: the branches round different intermediates (the cache-in-carry
+        # branch rounds its two partial mixes and their sum), so they part by
+        # a bf16 ulp of the attention output, spread by the projection, which
+        # bf16 DATA_TOL (one rounding of one float32 result) does not cover:
+        # each branch is held to its own float32 step on the same bf16
+        # values, the new branch's error at most BF16_BRANCH_RATIO times the
+        # write-back branch's; the differences are printed
+        yb, _ = step(p, torch.bfloat16, dev, length, False)
+        wbb, _ = step(p, torch.bfloat16, dev, length, True)
+        ybc, _ = step(cpu_p, torch.bfloat16, "cpu", length, False)
+        err_f = float((yb.float() - y32).abs().max())
+        err_t = float((wbb.float() - wb32).abs().max())
+        check(bool(torch.isfinite(yb).all()) and err_f <= BF16_BRANCH_RATIO * err_t,
+              f"batched (f): length {length}, bf16 write_back=False errs by {err_f} "
+              f"against its float32 step, write_back=True by {err_t}")
+        case["bfloat16"] = dict(
+            err_vs_float32=err_f, write_back_err_vs_float32=err_t,
+            max_abs_y=float(wb32.abs().max()),
+            vs_write_back_max_abs_err=float((yb.float() - wbb.float()).abs().max()),
+            card_vs_cpu_max_abs_err=float((yb.float().cpu() - ybc.float()).abs().max()),
+            cpu_err_vs_float32=float((ybc.float() - y32.cpu()).abs().max()),
+            ms=cuda_ms(lambda: step(p, torch.bfloat16, dev, length, False), 20),
+            write_back_ms=cuda_ms(lambda: step(p, torch.bfloat16, dev, length, True), 20))
+        cases[str(length)] = case
+    out["f"] = dict(shape=dict(B=B, cache=size, Hq=acfg.num_heads, Hkv=acfg.num_kv_heads,
+                               D=acfg.head_dim, d_model=acfg.d_model),
+                    cases=cases)
+    return dict(phase="batched", card=card_name_and_power(), **out,
+                phase_s=time.perf_counter() - t_phase)
+
+
 def figures_phase(dev, counters):
     """The port's Fig. 2-5 drivers on the card (FIG_SEEDS, FIG5_DEVICES),
     with the kernel launches of exactly those runs; then Fig. 2-4 at one
@@ -3426,6 +3760,8 @@ def main() -> int:
                          simulate, regret_curves)
         check(rec["launches"]["gp_readout"] > 0, "baselines: no readout launch")
         emit(rec)
+
+    emit(batched_phase(dev, counters))
 
     figures = figures_phase(dev, counters)
     emit(figures)

@@ -8,13 +8,16 @@ two outputs can be diffed line by line.
 
 The paper-figure drivers accept ``--engine {event,batched}`` as the JAX
 drivers do.  ``event`` is the host event loop of
-``repro_torch.core.simulate``.  ``batched`` raises ``NotImplementedError``:
-the batched sweep engine is not ported yet (ROADMAP.md section 1, item 8).
-A figure's ``us_per_call`` is ``SimResult.decision_seconds`` per decision.
-Each decision's clock stops once its pick is a Python int on the host, a
-read that waits for the card, so the time covers the decision's device
-work; :func:`episode` ends each episode in a ``torch.cuda.synchronize()``,
-so no episode's device work runs on into the next one's clock.
+``repro_torch.core.simulate``: a figure's ``us_per_call`` is then
+``SimResult.decision_seconds`` per decision.  Each decision's clock stops
+once its pick is a Python int on the host, a read that waits for the card,
+so the time covers the decision's device work; :func:`episode` ends each
+episode in a ``torch.cuda.synchronize()``, so no episode's device work runs
+on into the next one's clock.  ``batched`` runs the episodes through
+``repro_torch.core.simulate_batch`` (DESIGN.md §6); its rows carry
+``engine=batched`` and their ``us_per_call`` is a batch's wall clock per
+episode (``BatchResult.wall_seconds``, which ends when the logs are on the
+host), not a decision's latency.
 
 The service suites time with :func:`time_us` and :func:`timed`, which wait
 for the card (``obs.profile.wait``): ``sync=True`` after every call, else
@@ -52,14 +55,6 @@ def set_fast(value: bool = True) -> None:
     global FAST
     FAST = value
     os.environ["BENCH_FAST"] = "1" if value else "0"
-
-
-def require_event_engine(engine: str) -> None:
-    """Raise for ``--engine batched`` (never a silent fall back to event)."""
-    if engine != "event":
-        raise NotImplementedError(
-            "--engine batched needs the batched sweep engine, which is not "
-            "ported yet (ROADMAP.md section 1, item 8); use --engine event")
 
 
 def episode(problem, policy: str, num_devices: int, seed: int, device=None):

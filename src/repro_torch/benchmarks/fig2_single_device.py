@@ -5,7 +5,12 @@ Figure of merit (paper Section 6.2): time to reach a given instantaneous
 regret.  The paper reports MDMT reaching the same regret "up to 5x" faster
 than round robin on Azure and no significant speedup on DeepLearning; we
 report the geometric-mean and max per-seed speedups at two thresholds, plus
-cumulative regret.  The JAX driver's rows, on ``repro_torch.core``."""
+cumulative regret.  The JAX driver's rows, on ``repro_torch.core``.
+
+``--engine batched`` runs each seed's three policies as one
+``repro_torch.core.simulate_batch`` call (identical trial sequences for the
+deterministic policies; the random baseline differs per seed only in its
+random stream, see DESIGN.md §6)."""
 
 from __future__ import annotations
 
@@ -13,12 +18,14 @@ import numpy as np
 
 from ..core import (
     POLICIES,
+    EpisodeSpec,
     azure_problem,
     deeplearning_problem,
     final_regret,
     regret_curves,
+    simulate_batch,
 )
-from .common import FAST, emit, episode, parse_engine_args, require_event_engine
+from .common import FAST, emit, episode, parse_engine_args
 
 THRESHOLDS = {"azure": (0.03, 0.015), "deeplearning": (0.02, 0.01)}
 
@@ -32,7 +39,6 @@ def _gmean(xs):
 def run(num_devices: int = 1, tag: str = "fig2", engine: str = "event",
         num_seeds: int | None = None, device=None) -> None:
     """The figure's rows; ``device=None`` runs every episode on the card."""
-    require_event_engine(engine)
     seeds = range(num_seeds if num_seeds is not None else (3 if FAST else 8))
     for ds_name, maker in (("azure", azure_problem),
                            ("deeplearning", deeplearning_problem)):
@@ -42,16 +48,33 @@ def run(num_devices: int = 1, tag: str = "fig2", engine: str = "event",
         dec_us = {p: [] for p in POLICIES}
         for seed in seeds:
             prob = maker(seed=seed)
-            for pol in POLICIES:
-                res = episode(prob, pol, num_devices, seed, device)
+            if engine == "batched":
+                # One call per (problem, seed): the ease.ml generators
+                # resample the *prior* (K, mu0, cost) per seed, so seeds
+                # cannot share a batch through the z_true override.
+                batch = simulate_batch(
+                    prob, [EpisodeSpec(pol, num_devices, seed) for pol in POLICIES],
+                    device=device)
+                # a batch's wall clock per episode (the first call carries
+                # the card's warm-up), not a decision's latency: the rows
+                # carry engine=batched
+                batch_us = batch.wall_seconds / len(POLICIES) * 1e6
+            for i, pol in enumerate(POLICIES):
+                if engine == "batched":
+                    res = batch.episode_result(i)
+                else:
+                    res = episode(prob, pol, num_devices, seed, device)
                 c = regret_curves(res)
                 for th in ths:
                     t_hit[pol][th].append(c.time_to_instantaneous(th))
                 regret[pol].append(final_regret(res))
                 dec_us[pol].append(
+                    batch_us if engine == "batched" else
                     res.decision_seconds / max(res.decisions, 1) * 1e6)
         for pol in POLICIES:
             derived = {"cum_regret": f"{np.mean(regret[pol]):.0f}"}
+            if engine == "batched":
+                derived["engine"] = "batched"
             for th in ths:
                 derived[f"t_reach_{th}"] = f"{np.mean(t_hit[pol][th]):.0f}"
             if pol == "mdmt":
@@ -66,7 +89,11 @@ def run(num_devices: int = 1, tag: str = "fig2", engine: str = "event",
                         f"{finite.max():.2f}" if finite.size else "nan")
                 derived["regret_vs_rr"] = (
                     f"{np.mean(regret['round_robin']) / np.mean(regret['mdmt']):.2f}")
-            emit(f"{tag}_{ds_name}_{pol}", float(np.mean(dec_us[pol])), **derived)
+            # batched: the minimum over seeds, the steady-state episode cost
+            # (the first seed's call carries the warm-up)
+            us = (float(np.min(dec_us[pol])) if engine == "batched"
+                  else float(np.mean(dec_us[pol])))
+            emit(f"{tag}_{ds_name}_{pol}", us, **derived)
 
 
 def main(device=None) -> None:

@@ -1,5 +1,6 @@
 """Paper Fig. 4: policy comparison with four computation devices (Fig. 2's
-rows at M = 4)."""
+rows at M = 4).  Accepts the same ``--engine {event,batched}`` flag as
+Fig. 2."""
 
 from __future__ import annotations
 

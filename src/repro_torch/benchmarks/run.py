@@ -47,8 +47,10 @@ section functions take ``device="cpu"``).
 
 Flags (forwarded to the figure modules):
   --engine {event,batched}   ``event`` is the host event loop; ``batched``
-                             raises NotImplementedError (the batched sweep
-                             engine is not ported yet).
+                             runs the episodes as batched tensor steps
+                             (repro_torch.core.simulate_batch; rows tagged
+                             engine=batched, us_per_call a batch's wall
+                             per episode).
   --seeds S                  seeds (fig5: repeats) per configuration.
 
 Set BENCH_FAST=1, or pass --smoke, for a quick pass (toy shapes, fewer

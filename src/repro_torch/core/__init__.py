@@ -10,6 +10,8 @@
   control_plane.py the per-event decision core (GP fold + EIrate pick),
                    closed and open world, scorers "ops" and "sharded"
   scheduler.py     event-driven MM-GP-EI + round-robin/random baselines
+  sim_batched.py   batched synchronous-slot engine: many episodes as one
+                   stream of batched tensor steps (DESIGN.md §6)
   regret.py        cumulative + instantaneous global-happiness regret
   cost_model.py    roofline trial-cost estimate c(x) on the H100's peaks
                    (Remark 1), probe-backed or analytic
@@ -48,6 +50,7 @@ from .miu import (  # noqa: F401
 )
 from .regret import RegretCurves, final_regret, regret_curves, speedup_to_threshold  # noqa: F401
 from .scheduler import POLICIES, FailureEvent, SimResult, TrialRecord, simulate  # noqa: F401
+from .sim_batched import BatchResult, EpisodeSpec, simulate_batch  # noqa: F401
 from .service import (  # noqa: F401
     AutoMLService,
     RealExecutor,

@@ -166,12 +166,17 @@ def kv_cache_specs(cfg: AttnConfig, batch: int, max_len: int, dtype) -> KVCache:
     )
 
 
-def attention_decode(p: dict, x: torch.Tensor, cache: KVCache,
-                     cfg: AttnConfig) -> tuple[torch.Tensor, KVCache]:
+def attention_decode(p: dict, x: torch.Tensor, cache: KVCache, cfg: AttnConfig,
+                     write_back: bool = True) -> tuple[torch.Tensor, KVCache]:
     """One decode step, x (B, 1, d): write the new key and value at slot
     length % size of a copy of the cache, attend over the written slots.
-    (The reference's ``write_back=False`` branch, which no caller takes,
-    is not ported.)"""
+
+    With ``write_back=False`` (the reference's cache-in-carry branch) the
+    cache is not copied: the step attends over the stale cache with the
+    slot masked out and folds the new token's logit in separately, and the
+    returned cache carries only the new-token projections (k and v of shape
+    (B, 1, Hkv, D)); the caller writes them into its own cache.  No caller
+    in either package takes that branch."""
     B = x.shape[0]
     pos = cache.length
     q, k_new, v_new = _project_qkv(p, x, cfg, pos.reshape(1))
@@ -180,12 +185,27 @@ def attention_decode(p: dict, x: torch.Tensor, cache: KVCache,
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qg = q.reshape(B, Hkv, H // Hkv, D)
     acc_t, neg = _acc_and_neg(cfg, cache.k.dtype)
-    k = cache.k.index_copy(1, slot, k_new.to(cache.k.dtype))
-    v = cache.v.index_copy(1, slot, v_new.to(cache.v.dtype))
-    logits = torch.einsum("bhgd,bshd->bhgs", qg, k).to(acc_t) * (1.0 / math.sqrt(D))
+    scale = 1.0 / math.sqrt(D)
     idx = torch.arange(size, device=x.device)
-    written = torch.where(pos + 1 < size, idx <= slot, torch.ones_like(idx, dtype=torch.bool))
+    if write_back:
+        k = cache.k.index_copy(1, slot, k_new.to(cache.k.dtype))
+        v = cache.v.index_copy(1, slot, v_new.to(cache.v.dtype))
+        logits = torch.einsum("bhgd,bshd->bhgs", qg, k).to(acc_t) * scale
+        written = torch.where(pos + 1 < size, idx <= slot,
+                              torch.ones_like(idx, dtype=torch.bool))
+        logits = torch.where(written, logits, neg)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhgs,bshd->bhgd", probs, v).reshape(B, 1, H, D)
+        return _out_proj(out, p["wo"]), KVCache(k=k, v=v, length=pos + 1)
+
+    # attend over the stale cache with the slot masked out (before the ring
+    # wraps: the slots below it; after: all but it), the new token apart
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, cache.k.to(qg.dtype)).to(acc_t) * scale
+    written = torch.where(pos < size, idx < slot, idx != slot)
     logits = torch.where(written, logits, neg)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgs,bshd->bhgd", probs, v).reshape(B, 1, H, D)
-    return _out_proj(out, p["wo"]), KVCache(k=k, v=v, length=pos + 1)
+    logit_new = torch.einsum("bhgd,bshd->bhgs", qg, k_new.to(qg.dtype)).to(acc_t) * scale
+    probs = torch.softmax(torch.cat([logits, logit_new], dim=-1), dim=-1).to(x.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", probs[..., :-1], cache.v.to(x.dtype))
+    out = out + torch.einsum("bhgs,bshd->bhgd", probs[..., -1:], v_new.to(x.dtype))
+    out = out.reshape(B, 1, H, D)
+    return _out_proj(out, p["wo"]), KVCache(k=k_new, v=v_new, length=pos + 1)

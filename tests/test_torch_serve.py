@@ -311,6 +311,49 @@ def test_bf16_first_departing_op_is_the_mlp_silu(monkeypatch):
     assert same(jcache, tcache, 0) and not same(jcache, tcache, 1)
 
 
+@pytest.mark.parametrize("length", [5, 21])
+def test_attention_decode_without_write_back_equals_reference(length):
+    """``attention_decode(write_back=False)``, the cache-in-carry branch, on
+    layer 0 of the qwen3-4b smoke config (float32) with a 16-slot cache,
+    before the ring wraps (length 5) and after (21, slot 5): the output
+    equals the reference's branch within float32 2e-5, the returned cache
+    is the new token's (B, 1, Hkv, D) projections (the reference's, within
+    2e-5), and the output equals the port's ``write_back=True`` step on the
+    same cache, whose written slot holds those projections."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    jcfg = dataclasses.replace(jax_smoke_config("qwen3-4b"), compute_dtype=jnp.float32)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    jp = jax.tree.map(lambda a: np.asarray(a)[0], jparams["blocks"]["attn"])
+    tp = convert.model_params(jp, "cpu")
+    acfg = jcfg.attn_cfg
+    tcfg = get_smoke_config("qwen3-4b").attn_cfg
+    rng = np.random.default_rng(length)
+    B, size = 2, 16
+    shape = (B, size, acfg.num_kv_heads, acfg.head_dim)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    x = rng.standard_normal((B, 1, acfg.d_model)).astype(np.float32)
+
+    jy, jc = jattn.attention_decode(
+        jp, jnp.asarray(x), jattn.KVCache(jnp.asarray(k), jnp.asarray(v), jnp.int32(length)),
+        acfg, None, write_back=False)
+    cache = tattn.KVCache(torch.from_numpy(k), torch.from_numpy(v),
+                          torch.tensor(length, dtype=torch.int32))
+    y, c = tattn.attention_decode(tp, torch.from_numpy(x), cache, tcfg, write_back=False)
+    tol = dict(rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+    assert c.k.shape == c.v.shape == (B, 1, acfg.num_kv_heads, acfg.head_dim)
+    np.testing.assert_allclose(c.k.numpy(), np.asarray(jc.k), **tol)
+    np.testing.assert_allclose(c.v.numpy(), np.asarray(jc.v), **tol)
+    assert int(c.length) == int(jc.length) == length + 1
+
+    y_wb, c_wb = tattn.attention_decode(tp, torch.from_numpy(x), cache, tcfg)
+    np.testing.assert_allclose(y.numpy(), y_wb.numpy(), **tol)
+    slot = length % size
+    torch.testing.assert_close(c_wb.k[:, slot:slot + 1], c.k, rtol=0, atol=0)
+    torch.testing.assert_close(c_wb.v[:, slot:slot + 1], c.v, rtol=0, atol=0)
+
+
 def test_engine_refuses_parameters_elsewhere():
     cfg = get_smoke_config("qwen3-4b")
     params = init_params(cfg, 0, device="cpu")
