@@ -6,7 +6,7 @@ package's rows.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [section ...] [--smoke]
 
-Sections (default: all but roofline):
+Sections (default: all):
   fig2      single-device policy comparison, Azure + DeepLearning
   fig3      device-count sweep for MM-GP-EI
   fig4      policy comparison on four devices
@@ -31,8 +31,9 @@ Sections (default: all but roofline):
             accounting-sample cost (capacity)
   chaos     failure-domain hardening: hardened engine vs failure-free twin
             regret bound + unsupervised stranding baseline (chaos)
-  roofline  raises NotImplementedError: it reads the data-plane dry run's
-            output, which is not ported (ROADMAP.md section 1, item 7)
+  roofline  the data-plane dry run's roofline, one row per probe record
+            that ``python -m repro_torch.launch.dryrun --probe`` wrote
+            (``roofline_missing`` without one); needs no card
 
 The sharded sections (shard, dtrace, obs, capacity) put every logical
 shard on the one card: they measure one controller walking S shard slices,
@@ -75,9 +76,10 @@ MODULES = {
     "shard": "shard_scale", "devchurn": "device_churn",
     "eventlog": "eventlog", "dtrace": "decision_trace",
     "obs": "obs_overhead", "capacity": "capacity", "chaos": "chaos",
+    "roofline": "roofline",
 }
 
-SECTIONS = tuple(MODULES) + ("roofline",)
+SECTIONS = tuple(MODULES)
 
 # section -> BENCH_<suite>.json written next to the CSV: the JAX package's
 # suite name with ``torch_`` in front, so the two never share a file
@@ -104,6 +106,7 @@ HOST_TIME_KEYS = {
                  "base_us", "gap_us", "skew_us", "allgather_us",
                  "attributed_pct", "max_us", "min_us", "skew",
                  "per_shard_us"),
+    "roofline": (),
 }
 
 
@@ -116,11 +119,6 @@ def comparable(section: str, rows) -> list[tuple[str, list]]:
             for name, _, pairs in rows]
 
 
-ROOFLINE_MISSING = (
-    "roofline reads the data-plane dry run's output (launch/dryrun), which "
-    "is not ported yet (ROADMAP.md section 1, item 7)")
-
-
 def _parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.benchmarks.run",
@@ -128,7 +126,7 @@ def _parse_args(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("sections", nargs="*", metavar="section",
                    help=f"sections to run: {', '.join(SECTIONS)} "
-                        "(default: all but roofline)")
+                        "(default: all)")
     p.add_argument("--engine", choices=("event", "batched"), default="event",
                    help="episode engine for fig2-5 (default: event)")
     p.add_argument("--seeds", type=positive_int, default=None,
@@ -147,8 +145,6 @@ def _parse_args(argv=None):
 
 def main() -> None:
     args = _parse_args()
-    if "roofline" in args.sections:
-        raise NotImplementedError(ROOFLINE_MISSING)
     if args.smoke:
         # must precede the figure modules' import: they bind common.FAST then
         common.set_fast(True)

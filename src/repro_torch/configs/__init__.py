@@ -64,3 +64,37 @@ def shape_applicable(cfg, shape_name: str) -> bool:
     if shape_name == "long_500k":
         return cfg.supports_long_context
     return True
+
+
+# Optimized sharding-rule selection (the reference's, verbatim):
+#   qrows  — archs whose head counts don't divide the 16-way model axis
+#            (attention otherwise replicates across TP)
+#   puredp — small dense models where TP activation all-reduces dominate
+#            (ZeRO-3 pure DP)
+#   fsdp   — very large MoE trains (per-device argument bytes)
+#   default otherwise.
+_PREFERRED: dict[tuple[str, str], str] = {}
+for _shape in ("train_4k", "prefill_32k", "decode_32k"):
+    _PREFERRED[("musicgen-medium", _shape)] = "qrows"
+for _shape in ("train_4k", "prefill_32k"):
+    _PREFERRED[("olmo-1b", _shape)] = "puredp"
+    _PREFERRED[("mamba2-1.3b", _shape)] = "puredp"
+_PREFERRED[("qwen3-8b", "train_4k")] = "puredp"
+_PREFERRED[("arctic-480b", "train_4k")] = "fsdp"
+_PREFERRED[("qwen3-moe-235b-a22b", "train_4k")] = "fsdp"
+
+
+def preferred_rules_name(arch_id: str, shape_name: str) -> str:
+    """The tuned rules variant for a cell ("default" if untuned)."""
+    return _PREFERRED.get((arch_id, shape_name), "default")
+
+
+def cells(arch_ids=ARCH_IDS):
+    """All (arch, shape) dry-run cells, with applicability filtering."""
+    out = []
+    for a in arch_ids:
+        cfg = get_config(a)
+        for s in SHAPES:
+            if shape_applicable(cfg, s):
+                out.append((a, s))
+    return out

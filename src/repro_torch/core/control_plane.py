@@ -725,35 +725,35 @@ class ControlPlane:
         if self.selected.all():
             return None
         tr = self.tracer
+        # a disabled tracer costs one test a decision and opens no span
+        traced = tr.enabled
         if self.scorer == "sharded":
-            with tr.span("posterior", scorer="sharded"):
+            if traced:
+                with tr.span("posterior", scorer="sharded"):
+                    mu, sd = self._posterior_host()
+                with tr.span("score", scorer="sharded"):
+                    idx, score = self._score_sharded(mu, sd, device_speed)
+            else:
                 mu, sd = self._posterior_host()
-            with tr.span("score", scorer="sharded"):
-                if self._forensics is None:
-                    idx, score = self._sharded.decide(
-                        mu, sd, self._best_t, self.selected, device_speed)
-                else:
-                    # decide() is the head of decide_topk(): keeping the k
-                    # candidates changes no decision
-                    v, g = (_host(x) for x in self._sharded.decide_topk(
-                        mu, sd, self._best_t, self.selected, device_speed))
-                    idx, score = int(g[0]), float(v[0])
-                    self._record_forensics(v, g, mu, sd, speed=device_speed)
+                idx, score = self._score_sharded(mu, sd, device_speed)
             if not np.isfinite(score) or score <= -1e29:
                 return None
             return idx, -1
-        with tr.span("posterior", scorer=self.scorer):
-            mu, sd = tr.sync(self.gp.posterior_sd())
+        if traced:
+            with tr.span("posterior", scorer=self.scorer):
+                mu, sd = tr.sync(self.gp.posterior_sd())
+        else:
+            mu, sd = self.gp.posterior_sd()
         cost = self._cost_t
         if device_speed != 1.0:
             # by a tensor: CUDA divides by a host scalar through its
             # reciprocal, which would round differently from the CPU
             cost = cost / torch.full_like(cost, device_speed)
-        with tr.span("score", scorer=self.scorer):
-            scores = ops.eirate(mu, sd, self._best_t, self._membership_t,
-                                cost, self._selected_t)
-            idx = int(torch.argmax(scores))    # first maximum, as jnp.argmax
-            score = float(scores[idx])
+        if traced:
+            with tr.span("score", scorer=self.scorer):
+                scores, idx, score = self._score_ops(mu, sd, cost)
+        else:
+            scores, idx, score = self._score_ops(mu, sd, cost)
         if self._forensics is not None:
             # the top of the same scores, equal values in ascending id: its
             # head is the argmax above, and no scoring pass is added
@@ -762,6 +762,26 @@ class ControlPlane:
         if not np.isfinite(score) or score <= -1e29:
             return None
         return idx, -1
+
+    def _score_sharded(self, mu, sd, device_speed: float):
+        """(the sharded scorer's pick, its score); with a forensics recorder
+        the decision's top-k is recorded."""
+        if self._forensics is None:
+            return self._sharded.decide(mu, sd, self._best_t, self.selected,
+                                        device_speed)
+        # decide() is the head of decide_topk(): keeping the k candidates
+        # changes no decision
+        v, g = (_host(x) for x in self._sharded.decide_topk(
+            mu, sd, self._best_t, self.selected, device_speed))
+        self._record_forensics(v, g, mu, sd, speed=device_speed)
+        return int(g[0]), float(v[0])
+
+    def _score_ops(self, mu, sd, cost):
+        """(the EIrate scores, their first argmax, its score)."""
+        scores = ops.eirate(mu, sd, self._best_t, self._membership_t,
+                            cost, self._selected_t)
+        idx = int(torch.argmax(scores))    # first maximum, as jnp.argmax
+        return scores, idx, float(scores[idx])
 
     def choose_mdmt_batch(self, rates, overheads, k: int, *,
                           class_names=None) -> tuple[np.ndarray, np.ndarray]:
@@ -792,33 +812,46 @@ class ControlPlane:
             return (np.full((rates.shape[0], k), -np.inf, np.float32),
                     np.zeros((rates.shape[0], k), np.int64))
         tr = self.tracer
+        forensics = (rates_in, overheads_in, class_names)
+        # a disabled tracer costs one test a decision and opens no span
+        traced = tr.enabled
         if self.scorer == "sharded":
+            if not traced:
+                mu, sd = self._posterior_host()
+                return self._score_topk_sharded(mu, sd, rates, overheads, k, forensics)
             with tr.span("posterior", scorer="sharded"):
                 mu, sd = self._posterior_host()
             with tr.span("score_topk", scorer="sharded", k=k):
-                v, g = self._sharded.decide_topk_classes(
-                    mu, sd, self._best_t, self.selected, rates, overheads,
-                    k=k)
-                v, g = v.cpu().numpy(), g.cpu().numpy()
-                self._record_batch_forensics(v, g, mu, sd, rates_in,
-                                             overheads_in, class_names)
-                return v, g
-        with tr.span("posterior", scorer=self.scorer):
-            mu, sd = tr.sync(self.gp.posterior_sd())
+                return self._score_topk_sharded(mu, sd, rates, overheads, k, forensics)
+        if traced:
+            with tr.span("posterior", scorer=self.scorer):
+                mu, sd = tr.sync(self.gp.posterior_sd())
+        else:
+            mu, sd = self.gp.posterior_sd()
         dev = self.device
         # by tensors: CUDA divides by a host scalar through its reciprocal
         rates_t = torch.from_numpy(rates).to(dev)
         over_t = torch.from_numpy(overheads).to(dev)
         cm = self._cost_t[None, :] / rates_t[:, None] + over_t[:, None]
+        if not traced:
+            return self._score_topk_ops(mu, sd, cm, k, forensics)
         with tr.span("score_topk", scorer=self.scorer, k=k):
-            scores = ops.eirate_classes(mu, sd, self._best_t,
-                                        self._membership_t, cm,
-                                        self._selected_t)
-            v, i = topk_rows_padded(scores, k)
-            v, i = v.cpu().numpy(), i.cpu().numpy()
-            self._record_batch_forensics(v, i, mu, sd, rates_in,
-                                         overheads_in, class_names)
-            return v, i
+            return self._score_topk_ops(mu, sd, cm, k, forensics)
+
+    def _score_topk_sharded(self, mu, sd, rates, overheads, k: int, forensics):
+        v, g = self._sharded.decide_topk_classes(
+            mu, sd, self._best_t, self.selected, rates, overheads, k=k)
+        v, g = v.cpu().numpy(), g.cpu().numpy()
+        self._record_batch_forensics(v, g, mu, sd, *forensics)
+        return v, g
+
+    def _score_topk_ops(self, mu, sd, cm, k: int, forensics):
+        scores = ops.eirate_classes(mu, sd, self._best_t, self._membership_t,
+                                    cm, self._selected_t)
+        v, i = topk_rows_padded(scores, k)
+        v, i = v.cpu().numpy(), i.cpu().numpy()
+        self._record_batch_forensics(v, i, mu, sd, *forensics)
+        return v, i
 
     def _users_with_work(self) -> np.ndarray:
         has_work = (self.membership & ~self.selected[None, :]).any(axis=1)

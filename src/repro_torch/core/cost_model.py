@@ -13,14 +13,14 @@ with the three terms taken from a probe JSON when one exists for the
 measured-update hook blends in observed durations (historical data), which
 the service uses after every completed trial.
 
-The probe path reads the reference's file layout,
-``DRYRUN_DIR/<mesh>/<arch>__<shape>__<rules>__probe.json``, each file the
-per-card compute, memory and collective seconds of one step on a slice of
-``REFERENCE_CHIPS`` cards named by ``mesh`` (the defaults, 256 and
-"pod16x16", are the reference's pod).  On H100s those files must come from
-a dry run that counts against the constants below, taken on a slice of
-that many cards; the port has no such dry run yet (ROADMAP.md section 1,
-item 6), so without the files every cell takes the analytic path.
+The probe path reads the reference's file layout under the port's own
+directory, ``DRYRUN_DIR/<mesh>/<arch>__<shape>__<rules>__probe.json``
+(``experiments/dryrun_torch``, so that a TPU record is never read as a
+card's), each file the per-card compute, memory and collective seconds of
+one step on a slice of ``REFERENCE_CHIPS`` cards named by ``mesh`` (256,
+"pod16x16"), counted against the constants below by
+``python -m repro_torch.launch.dryrun --probe``.  Without the file a cell
+takes the analytic path.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ HBM_BW = 3.35e12          # HBM3 bytes/s a card
 ICI_BW = 450e9            # NVLink 4 bytes/s a card, one direction (900e9 both)
 HBM_PER_CHIP = 80e9       # HBM3 capacity of a card, bytes
 
-DRYRUN_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun"
+DRYRUN_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 REFERENCE_CHIPS = 256     # cards of the slice a probe was taken on
 
 

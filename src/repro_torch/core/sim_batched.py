@@ -37,11 +37,17 @@ event engine's arithmetic in its order:
   divided by the freed device's speed, as ``ControlPlane.choose_mdmt``
   divides it) and the per-tenant baselines' argmaxes (first index).
 
-The ``random`` baseline draws each episode's T uniforms up front from a CPU
-``torch.Generator`` seeded by ``spec.seed`` and picks the
-``floor(U * count)``-th tenant that still has work, so the card and the CPU
-agree trial for trial; it matches the event engine and the reference's
-``jax.random.categorical`` stream in distribution only.  ``decisions`` keeps
+The ``random`` baseline draws the reference's own stream: JAX's threefry2x32
+``PRNGKey(spec.seed)``, one ``key, sub = split(key)`` a step, and
+``categorical(sub, logits)`` with ``logits`` 0 where a tenant still has work
+and -inf elsewhere, i.e. the first argmax of ``gumbel(sub)`` over those
+tenants (``jax_threefry_partitionable``'s bit layout, JAX's float32 uniform
+construction, ``-log(-log(u))`` with each log in float64 rounded once).  The
+keys are chained on the host before the loop (integers, exact); the
+uniforms and Gumbels are made on the device ``_GUMBEL_CHUNK`` steps at a
+time, so no (B, T, N) buffer exists and nothing is read back.  It matches
+the reference's trial sequences, and the card the CPU's; it matches the
+event engine (another stream) in distribution only.  ``decisions`` keeps
 the reference's formula (``active & ~use_pending``), which differs from the
 event engine's count by O(M) at the end of an episode (DESIGN.md §6).  The
 regret curves are integrated in the loop as in the reference; the sum over
@@ -222,15 +228,81 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def _uniforms(specs, T: int) -> torch.Tensor:
-    """(B, T) float64 draws of the random baseline, one CPU generator per
-    episode seeded by its spec (zeros for the other policies)."""
-    U = torch.zeros((len(specs), T), dtype=torch.float64)
-    for i, s in enumerate(specs):
-        if s.policy == "random":
-            g = torch.Generator().manual_seed(int(s.seed))
-            U[i] = torch.rand(T, generator=g, dtype=torch.float64)
-    return U
+# ---------------------------------------------------------------------------
+# the random baseline's stream: JAX's threefry2x32 (jax._src.prng), on int64
+# arrays or tensors that hold uint32 values
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_GUMBEL_CHUNK = 32          # steps of Gumbels made at a time on the device
+_TINY32 = float(np.finfo(np.float32).tiny)
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of the count pairs (x1, x2) under
+    the key (k1, k2), elementwise with broadcasting: JAX's
+    ``threefry2x32_p``, on int64 numpy arrays or tensors holding uint32
+    values."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = x1 ^ (((x2 << r) & _M32) | (x2 >> (32 - r)))
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def prng_key(seed) -> tuple:
+    """``jax.random.PRNGKey(seed)`` of a uint32 seed: the words (0, seed)."""
+    seed = np.asarray(seed, np.int64) & _M32
+    return np.zeros_like(seed), seed
+
+
+def split(k1, k2) -> tuple:
+    """``jax.random.split(key)`` (two keys, partitionable layout): the
+    (k1, k2) words of the first and of the second new key."""
+    b1, b2 = threefry2x32(np.asarray(k1)[..., None], np.asarray(k2)[..., None],
+                          np.zeros(2, np.int64), np.arange(2, dtype=np.int64))
+    return (b1[..., 0], b2[..., 0]), (b1[..., 1], b2[..., 1])
+
+
+def random_bits(k1, k2, n: int):
+    """``jax.random.bits(key, (n,))``'s 32-bit words, keys (k1, k2) tensors
+    of any shape: (..., n) int64."""
+    idx = torch.arange(n, dtype=torch.int64, device=k1.device)
+    b1, b2 = threefry2x32(k1[..., None], k2[..., None], torch.zeros_like(idx), idx)
+    return b1 ^ b2
+
+
+def uniform(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 ``uniform(minval=tiny, maxval=1)`` of 32-bit words:
+    the top 23 bits as the mantissa of a float in [1, 2), minus 1, then
+    ``f * (1 - tiny) + tiny`` (which is f, or tiny for f = 0)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.where(f == 0.0, _TINY32, f)
+
+
+def gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 ``gumbel`` (mode "low") of 32-bit words:
+    ``-log(-log(u))``, each log in float64 rounded once to float32."""
+    return -rn(torch.log, -rn(torch.log, uniform(bits)))
+
+
+def _sub_keys(specs, T: int) -> np.ndarray:
+    """(2, B, T) int64: the words of ``sub`` at every step of each random
+    episode's key chain (``key, sub = split(key)`` from ``PRNGKey(seed)``),
+    zeros for the other policies."""
+    rows = [i for i, s in enumerate(specs) if s.policy == "random"]
+    out = np.zeros((2, len(specs), T), np.int64)
+    if rows:
+        k1, k2 = prng_key([specs[i].seed for i in rows])
+        for t in range(T):
+            (k1, k2), (out[0, rows, t], out[1, rows, t]) = split(k1, k2)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -366,10 +438,15 @@ def _step_loop(c: dict, s: dict, T: int) -> dict:
                 u_rr = order[ar, first]
                 u_sel = u_rr
             if has_random:
-                count = has_work.sum(1)
-                k = torch.minimum((c["U"][:, step] * count).floor().long(),
-                                  (count - 1).clamp_min(0))
-                u_rand = (has_work.long().cumsum(1) > k[:, None]).to(torch.int32).argmax(1)
+                # categorical(sub, logits): the first argmax of the Gumbels
+                # of the tenants with work (tenant 0 when none has any)
+                if step % _GUMBEL_CHUNK == 0:
+                    span = slice(step, step + _GUMBEL_CHUNK)
+                    gumbels = gumbel(random_bits(c["sub"][0][:, span],
+                                                 c["sub"][1][:, span], N))
+                g = gumbels[:, step % _GUMBEL_CHUNK]
+                u_rand = torch.where(has_work, g, float("-inf")).argmax(1)
+                u_rand = torch.where(any_left, u_rand, 0)
                 u_sel = torch.where(is_rr, u_rr, u_rand) if has_rr else u_rand
             ei_u = torch.where(free[ar, u_sel], ei[ar, u_sel], float("-inf"))
             pick_st = u_sel * m + ei_u.argmax(1)
@@ -488,13 +565,13 @@ def simulate_batch(
     pad = ((0, 0), (0, Np - N))
     z_star_p = np.pad(z_star_b.astype(np.float32), pad)
     worst_p = np.pad(worst_b.astype(np.float32), pad)
-    U = _uniforms(specs, T)
+    sub_keys = _sub_keys(specs, T)
 
     t0 = _time.perf_counter()
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     c = dict(Kb=up(Kb), mu0_b=up(mu0_b), kdiag_b=up(kdiag_b), cost=up(cost),
              pending=up(pending), pid=up(policy_id), speed=up(speeds),
-             z_true=up(z_true_b), z_star=up(z_star_p), U=U.to(dev),
+             z_true=up(z_true_b), z_star=up(z_star_p), sub=up(sub_keys),
              policies={s.policy for s in specs}, unit_speed=bool((speeds == 1).all()),
              jitter=torch.tensor(jitter, dtype=torch.float32, device=dev),
              floor=torch.tensor(floor, dtype=torch.float32, device=dev))

@@ -363,11 +363,17 @@ class DevPlaneEngine(StreamEngine):
                 rates, overheads = self.registry.rows(cls_names)
 
             t0 = _time.perf_counter()
-            with self.tracer.span("decide", batch=len(devices),
-                                  classes=len(cls_names)):
+            # a disabled tracer costs one test a site and opens no span
+            traced = self.tracer.enabled
+            if traced:
+                with self.tracer.span("decide", batch=len(devices),
+                                      classes=len(cls_names)):
+                    vals, gids = self.cp.choose_mdmt_batch(
+                        rates, overheads, k=len(devices),
+                        class_names=cls_names)
+            else:
                 vals, gids = self.cp.choose_mdmt_batch(
-                    rates, overheads, k=len(devices),
-                    class_names=cls_names)
+                    rates, overheads, k=len(devices), class_names=cls_names)
             dt = _time.perf_counter() - t0
             self._decision_seconds += dt
             self._decisions += 1
@@ -376,7 +382,10 @@ class DevPlaneEngine(StreamEngine):
                 self._m_decision_s.observe(dt)
                 self.metrics.counter("engine.scoring_passes").inc()
 
-            with self.tracer.span("assign", batch=len(devices)):
+            if traced:
+                with self.tracer.span("assign", batch=len(devices)):
+                    pairs = greedy_assign(vals, gids, rows)
+            else:
                 pairs = greedy_assign(vals, gids, rows)
             if not pairs:
                 return                 # pool exhausted for every free device

@@ -8,7 +8,9 @@ The flash attention and SSD kernels have no backward pass: on the card
 they are ``ctypes`` launches that autograd cannot see.  So both entry
 points raise, on either device, when autograd would record them (grad
 mode on and an input that requires grad); training takes the models'
-plain route (``use_pallas=False``), as the reference's does.
+plain route (``use_pallas=False``), as the reference's does.  They take
+local tensors: handed a DTensor (a sharded model), they raise, since the
+sharded route is the plain one, as the reference's dry run is.
 """
 
 from __future__ import annotations
@@ -54,6 +56,15 @@ def gp_readout(W, alpha, mu0, k_diag, *, emit_sd=False):
     return _gp_readout.gp_readout(W, alpha, mu0, k_diag, emit_sd=emit_sd)
 
 
+def _no_dtensor(name: str, *tensors) -> None:
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{name}: the kernel takes local tensors, and an input is a "
+            "DTensor; sharded models run the plain route (use_pallas=False)")
+
+
 def _forward_only(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -65,6 +76,7 @@ def _forward_only(name: str, *tensors) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """(B, S, Hq, D) causal GQA attention over q (B, S, Hq, D) and k, v
     (B, S, Hkv, D), in q's dtype; ``window`` keeps keys k > q - window."""
+    _no_dtensor("flash_attention", q, k, v)
     _forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -75,6 +87,7 @@ def ssd_mix(x, dt, log_a, b, c, *, chunk: int = 256):
     """The Mamba2 SSD mix y (B, S, H, P) float32, without the D * x term.
     The kernel scans chunks of ``chunk`` steps; the plain version steps the
     recurrence, so ``chunk`` changes only the rounding."""
+    _no_dtensor("ssd_mix", x, dt, log_a, b, c)
     _forward_only("ssd_mix", x, dt, log_a, b, c)
     if x.device.type == "cpu":
         return ref.ssd_ref(x, dt, log_a, b, c)

@@ -5,7 +5,8 @@ component is a pair of functions, ``*_specs(cfg)`` -> a tree of
 :class:`~repro_torch.models.spec.ParamSpec` and ``*_apply(p, x)`` ->
 activations, and parameters are plain nested dicts of tensors.  Norms,
 rotary embeddings and the loss compute in float32 where the reference does.
-The reference's sharding rules are not ported (one card).
+``rules`` (an ``AxisRules`` or None) places the reference's sharding
+constraints (``repro_torch.sharding.with_logical_constraint``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import embedding, on_shards, with_logical_constraint
 from .spec import ParamSpec
 
 # ---------------------------------------------------------------------------
@@ -61,8 +63,9 @@ def embed_specs(vocab: int, dim: int) -> dict:
 
 def embed_lookup(p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Rows of the table in ``compute_dtype`` (gathered, then cast: the
-    reference's cast-then-gather, without casting the whole table)."""
-    return p["table"][tokens.long()].to(compute_dtype)
+    reference's cast-then-gather, without casting the whole table; on
+    DTensors the vocab-parallel gather, ``sharding.embedding``)."""
+    return embedding(p["table"], tokens.long()).to(compute_dtype)
 
 
 def unembed_logits(table_or_w: torch.Tensor, x: torch.Tensor,
@@ -92,11 +95,13 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 _ACTIVATIONS = {"silu": F.silu, "gelu": _gelu_tanh}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, rules=None,
+              activation: str = "silu") -> torch.Tensor:
     dt = x.dtype
     gate = x @ p["wi_gate"].to(dt)
     up = x @ p["wi_up"].to(dt)
     h = _ACTIVATIONS[activation](gate) * up
+    h = with_logical_constraint(h, ("batch", "seq", "mlp"), rules)
     return h @ p["wo"].to(dt)
 
 
@@ -128,6 +133,7 @@ def softmax_xent_chunked(
     labels: torch.Tensor,       # (B, S) int
     mask: torch.Tensor | None,  # (B, S) bool or None
     tied: bool,
+    rules=None,
     chunk: int = 512,
 ) -> torch.Tensor:
     """Mean token cross-entropy with seq-chunked logits (O(B*chunk*V) peak)."""
@@ -137,17 +143,22 @@ def softmax_xent_chunked(
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
+        x = on_shards(F.pad, x, (1,), (0, 0, 0, pad))
+        labels = on_shards(F.pad, labels, (1,), (0, pad))
+        mask = on_shards(F.pad, mask, (1,), (0, pad))
     w = head_w.to(x.dtype)              # cast once, not per chunk
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, x.shape[1], chunk):
         xb, lb, mb = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
-        logits = unembed_logits(w, xb, tied).float()          # (B, c, V)
+        logits = unembed_logits(w, xb, tied)                  # (B, c, V)
+        logits = with_logical_constraint(logits, ("batch", "seq", "vocab"), rules)
+        logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lb.long()[..., None])[..., 0]
+        gold = logits.gather(-1, lb.long()[..., None])
+        # on vocab-sharded logits the gather is a masked partial sum, which
+        # DTensor reduces only at the gather's own shape: reduce it there
+        gold = with_logical_constraint(gold, ("batch", "seq", None), rules)[..., 0]
         nll = (logz - gold) * mb
         loss_sum = loss_sum + nll.sum()
         count = count + mb.sum()

@@ -23,6 +23,12 @@ policy (``remat``: ``"full"`` recomputes the block in the backward pass,
 ``"dots"`` keeps the matmul outputs, ``"none"`` keeps everything); the
 hybrid's shared block under a wrapper of its own.  ``prefill`` and
 ``decode_step`` run the plain paths that build and use the decode cache.
+
+Every entry point takes the reference's ``rules`` (an
+``repro_torch.sharding.AxisRules``, or None): with DTensor parameters and
+inputs under ``sharding.mesh_context``, the blocks place the reference's
+sharding constraints on their activations; with None, or on plain tensors,
+nothing changes.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import resolve
+from ..sharding.rules import with_logical_constraint
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -255,40 +262,40 @@ def _norm_params(p: dict, key: str):
     return p.get(key) or None          # {} (non-parametric norm) -> None
 
 
-def _ffn(p, h, cfg: ModelConfig, decode: bool = False):
+def _ffn(p, h, cfg: ModelConfig, rules=None, decode: bool = False):
     """The block's feed-forward half on the normed input h: the MLP, or the
     MoE (``moe_decode`` for one token; with Arctic's parallel dense MLP);
     (output, aux loss)."""
     if cfg.moe is None:
-        return mlp_apply(p["mlp"], h, cfg.mlp_activation), 0.0
+        return mlp_apply(p["mlp"], h, rules, cfg.mlp_activation), 0.0
     if decode:
-        y, aux = moe_lib.moe_decode(p["moe"], h, cfg.moe), 0.0
+        y, aux = moe_lib.moe_decode(p["moe"], h, cfg.moe, rules), 0.0
     else:
-        y, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe)
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, rules)
     if cfg.dense_residual:
-        y = y + mlp_apply(p["mlp"], h, cfg.mlp_activation)
+        y = y + mlp_apply(p["mlp"], h, rules, cfg.mlp_activation)
     return y, aux
 
 
-def _transformer_block(p, x, positions, cfg: ModelConfig):
+def _transformer_block(p, x, positions, cfg: ModelConfig, rules=None):
     h = apply_norm(cfg.norm, _norm_params(p, "attn_norm"), x)
-    x = x + attn_lib.attention_train(p["attn"], h, positions, cfg.attn_cfg)
+    x = x + attn_lib.attention_train(p["attn"], h, positions, cfg.attn_cfg, rules)
     h = apply_norm(cfg.norm, _norm_params(p, "mlp_norm"), x)
-    y, aux = _ffn(p, h, cfg)
+    y, aux = _ffn(p, h, cfg, rules)
     return x + y, aux
 
 
-def _ssm_block(p, x, cfg: ModelConfig):
+def _ssm_block(p, x, cfg: ModelConfig, rules=None):
     h = apply_norm(cfg.norm, p["norm"], x)
-    return x + ssm_lib.ssm_train(p["ssm"], h, cfg.ssm)
+    return x + ssm_lib.ssm_train(p["ssm"], h, cfg.ssm, rules)
 
 
-def _shared_block(shared, x, positions, cfg: ModelConfig):
+def _shared_block(shared, x, positions, cfg: ModelConfig, rules=None):
     """Zamba2's shared attention block (one weight copy for every group)."""
     a = apply_norm(cfg.norm, shared["attn_norm"], x)
-    x = x + attn_lib.attention_train(shared["attn"], a, positions, cfg.attn_cfg)
+    x = x + attn_lib.attention_train(shared["attn"], a, positions, cfg.attn_cfg, rules)
     m = apply_norm(cfg.norm, shared["mlp_norm"], x)
-    return x + mlp_apply(shared["mlp"], m, cfg.mlp_activation)
+    return x + mlp_apply(shared["mlp"], m, rules, cfg.mlp_activation)
 
 
 _MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -318,25 +325,25 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(cfg.remat)
 
 
-def _apply_blocks_train(params, x, positions, cfg: ModelConfig):
+def _apply_blocks_train(params, x, positions, cfg: ModelConfig, rules=None):
     """The stacked blocks, layer by layer, over the whole sequence, each
     block under the remat policy; returns (x, the MoE's aux loss summed over
     the layers, 0.0 without one)."""
     aux_total = 0.0
     if cfg.family in ("dense", "moe", "vlm", "audio"):
-        block = _remat(lambda p, h: _transformer_block(p, h, positions, cfg), cfg)
+        block = _remat(lambda p, h: _transformer_block(p, h, positions, cfg, rules), cfg)
         for layer_p in _layers(params["blocks"]):
             x, aux = block(layer_p, x)
             aux_total = aux_total + aux
         return x, aux_total
     if cfg.family == "ssm":
-        block = _remat(lambda p, h: _ssm_block(p, h, cfg), cfg)
+        block = _remat(lambda p, h: _ssm_block(p, h, cfg, rules), cfg)
         for layer_p in _layers(params["blocks"]):
             x = block(layer_p, x)
         return x, aux_total
     if cfg.family == "hybrid":
-        block = _remat(lambda p, h: _ssm_block(p, h, cfg), cfg)
-        shared = _remat(lambda p, h: _shared_block(p, h, positions, cfg), cfg)
+        block = _remat(lambda p, h: _ssm_block(p, h, cfg, rules), cfg)
+        shared = _remat(lambda p, h: _shared_block(p, h, positions, cfg, rules), cfg)
         for group_p in _layers(params["blocks"]):
             for layer_p in _layers(group_p):
                 x = block(layer_p, x)
@@ -354,7 +361,7 @@ def _frontend(inputs: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
     return inputs.to(cd) @ w.to(cd)
 
 
-def embed_inputs(params, batch: dict, cfg: ModelConfig):
+def embed_inputs(params, batch: dict, cfg: ModelConfig, rules=None):
     """Returns (x (B, S, d), positions (S,)): the token embeddings; for
     ``patches`` the projected patches before them; for ``frames`` the
     projected frames alone."""
@@ -369,6 +376,7 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig):
         x = _frontend(batch["frames"], params["frontend_proj"], cd)
     else:
         raise ValueError(cfg.frontend)
+    x = with_logical_constraint(x, ("batch", "seq", "act_embed"), rules)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
@@ -389,23 +397,23 @@ def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
                         for h in range(cfg.num_lm_heads)], dim=2)
 
 
-def forward_logits_last(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def forward_logits_last(params, batch: dict, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """Logits (B, 1, [heads,] V) at the final position of a full
     (non-cached) forward pass: what one ``decode_step`` after ``prefill``
     of the same prefix must give."""
-    x, positions = embed_inputs(params, batch, cfg)
-    x, _ = _apply_blocks_train(params, x, positions, cfg)
+    x, positions = embed_inputs(params, batch, cfg, rules)
+    x, _ = _apply_blocks_train(params, x, positions, cfg, rules)
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     return _logits(params, x[:, -1:, :], cfg)
 
 
-def forward_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def forward_loss(params, batch: dict, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """Mean-token cross entropy (float32 scalar) of ``batch["labels"]``
     (+ the MoE's aux loss); labels < 0 are masked out.  ``patches``: over
     the text suffix only; several heads: labels (B, S, heads), the mean of
     the heads' losses."""
-    x, positions = embed_inputs(params, batch, cfg)
-    x, aux = _apply_blocks_train(params, x, positions, cfg)
+    x, positions = embed_inputs(params, batch, cfg, rules)
+    x, aux = _apply_blocks_train(params, x, positions, cfg, rules)
     x = apply_norm(cfg.norm, params.get("final_norm"), x)
     labels = batch["labels"]
     mask = labels >= 0
@@ -414,11 +422,12 @@ def forward_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.num_lm_heads == 1:
         if cfg.frontend == "patches":
             x = x[:, -labels.shape[1]:, :]
-        loss = softmax_xent_chunked(x, head_w, labels, mask, tied, cfg.xent_chunk)
+        loss = softmax_xent_chunked(x, head_w, labels, mask, tied, rules,
+                                    cfg.xent_chunk)
     else:
         loss = torch.stack([
             softmax_xent_chunked(x, head_w[h], labels[..., h], mask[..., h], False,
-                                 cfg.xent_chunk)
+                                 rules, cfg.xent_chunk)
             for h in range(cfg.num_lm_heads)]).mean()
     return loss + aux
 
@@ -452,18 +461,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
                     make_cache_specs(cfg, batch, max_len))
 
 
-def _ssm_decode_layers(blocks, caches, x, cfg: ModelConfig):
+def _ssm_decode_layers(blocks, caches, x, cfg: ModelConfig, rules=None):
     """The stacked Mamba2 layers, one token: (x, their new caches stacked)."""
     new = []
     for layer_p, c in zip(_layers(blocks), _layers(caches)):
         hn = apply_norm(cfg.norm, layer_p["norm"], x)
-        y, c2 = ssm_lib.ssm_decode(layer_p["ssm"], hn, SSMCache(**c), cfg.ssm)
+        y, c2 = ssm_lib.ssm_decode(layer_p["ssm"], hn, SSMCache(**c), cfg.ssm, rules)
         x = x + y
         new.append(c2._asdict())
     return x, _stack(new)
 
 
-def decode_step(params, batch: dict, cache, cfg: ModelConfig):
+def decode_step(params, batch: dict, cache, cfg: ModelConfig, rules=None):
     """One new token for every sequence in the batch.
 
     batch: {"tokens": (B, 1)}, or {"frames": (B, 1, fd)} for ``frames``;
@@ -475,20 +484,20 @@ def decode_step(params, batch: dict, cache, cfg: ModelConfig):
     else:
         x = embed_lookup(params["embed"], batch["tokens"], cd)
     if cfg.family == "ssm":
-        x, new_ssm = _ssm_decode_layers(params["blocks"], cache["ssm"], x, cfg)
+        x, new_ssm = _ssm_decode_layers(params["blocks"], cache["ssm"], x, cfg, rules)
         new_cache = {"ssm": new_ssm}
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
         new_ssm, new_attn = [], []
         for group_p, ssm_c, attn_c in zip(_layers(params["blocks"]),
                                           _layers(cache["ssm"]), _layers(cache["attn"])):
-            x, ssm_c2 = _ssm_decode_layers(group_p, ssm_c, x, cfg)
+            x, ssm_c2 = _ssm_decode_layers(group_p, ssm_c, x, cfg, rules)
             a = apply_norm(cfg.norm, shared["attn_norm"], x)
             y, kv2 = attn_lib.attention_decode(shared["attn"], a, KVCache(**attn_c),
-                                               cfg.attn_cfg)
+                                               cfg.attn_cfg, rules)
             x = x + y
             m = apply_norm(cfg.norm, shared["mlp_norm"], x)
-            x = x + mlp_apply(shared["mlp"], m, cfg.mlp_activation)
+            x = x + mlp_apply(shared["mlp"], m, rules, cfg.mlp_activation)
             new_ssm.append(ssm_c2)
             new_attn.append(kv2._asdict())
         new_cache = {"ssm": _stack(new_ssm), "attn": _stack(new_attn)}
@@ -497,10 +506,10 @@ def decode_step(params, batch: dict, cache, cfg: ModelConfig):
         for layer_p, c in zip(_layers(params["blocks"]), _layers(cache["attn"])):
             hn = apply_norm(cfg.norm, _norm_params(layer_p, "attn_norm"), x)
             y, kv2 = attn_lib.attention_decode(layer_p["attn"], hn, KVCache(**c),
-                                               cfg.attn_cfg)
+                                               cfg.attn_cfg, rules)
             x = x + y
             m = apply_norm(cfg.norm, _norm_params(layer_p, "mlp_norm"), x)
-            x = x + _ffn(layer_p, m, cfg, decode=True)[0]
+            x = x + _ffn(layer_p, m, cfg, rules, decode=True)[0]
             new.append(kv2._asdict())
         new_cache = {"attn": _stack(new)}
 
@@ -508,38 +517,39 @@ def decode_step(params, batch: dict, cache, cfg: ModelConfig):
     return _logits(params, x, cfg), new_cache
 
 
-def _ssm_prefill_layers(blocks, x, cfg: ModelConfig):
+def _ssm_prefill_layers(blocks, x, cfg: ModelConfig, rules=None):
     """The stacked Mamba2 layers over the prompt: (x, their caches stacked)."""
     states = []
     for layer_p in _layers(blocks):
         hn = apply_norm(cfg.norm, layer_p["norm"], x)
-        y, st = ssm_lib.ssm_train_with_state(layer_p["ssm"], hn, cfg.ssm)
+        y, st = ssm_lib.ssm_train_with_state(layer_p["ssm"], hn, cfg.ssm, rules)
         x = x + y
         states.append(st)
     return x, _stack(states)
 
 
-def prefill(params, batch: dict, cfg: ModelConfig, max_len: int | None = None):
+def prefill(params, batch: dict, cfg: ModelConfig, rules=None,
+            max_len: int | None = None):
     """Score a full prompt and build the decode cache.
 
     The chunked plain forward plus per-layer cache capture.
     Returns (last_hidden (B, d), cache)."""
-    x, positions = embed_inputs(params, batch, cfg)
+    x, positions = embed_inputs(params, batch, cfg, rules)
     max_len = max_len or x.shape[1]
     if cfg.family == "ssm":
-        x, states = _ssm_prefill_layers(params["blocks"], x, cfg)
+        x, states = _ssm_prefill_layers(params["blocks"], x, cfg, rules)
         cache = {"ssm": states}
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
         states, kvs = [], []
         for group_p in _layers(params["blocks"]):
-            x, st = _ssm_prefill_layers(group_p, x, cfg)
+            x, st = _ssm_prefill_layers(group_p, x, cfg, rules)
             a = apply_norm(cfg.norm, shared["attn_norm"], x)
             y, kv = attn_lib.attention_train_with_kv(shared["attn"], a, positions,
-                                                     cfg.attn_cfg, max_len)
+                                                     cfg.attn_cfg, max_len, rules)
             x = x + y
             m = apply_norm(cfg.norm, shared["mlp_norm"], x)
-            x = x + mlp_apply(shared["mlp"], m, cfg.mlp_activation)
+            x = x + mlp_apply(shared["mlp"], m, rules, cfg.mlp_activation)
             states.append(st)
             kvs.append(kv)
         cache = {"ssm": _stack(states), "attn": _stack(kvs)}
@@ -548,10 +558,10 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int | None = None):
         for layer_p in _layers(params["blocks"]):
             hn = apply_norm(cfg.norm, _norm_params(layer_p, "attn_norm"), x)
             y, kv = attn_lib.attention_train_with_kv(layer_p["attn"], hn, positions,
-                                                     cfg.attn_cfg, max_len)
+                                                     cfg.attn_cfg, max_len, rules)
             x = x + y
             m = apply_norm(cfg.norm, _norm_params(layer_p, "mlp_norm"), x)
-            x = x + _ffn(layer_p, m, cfg)[0]
+            x = x + _ffn(layer_p, m, cfg, rules)[0]
             kvs.append(kv)
         cache = {"attn": _stack(kvs)}
     x = apply_norm(cfg.norm, params.get("final_norm"), x)

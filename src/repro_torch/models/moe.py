@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import einsum, with_logical_constraint
 from .spec import ParamSpec
 
 
@@ -82,7 +83,8 @@ def dispatch(ids: torch.Tensor, cfg: MoEConfig, C: int):
     return pos, pos < C
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig,
+              rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (output (B, S, d), aux loss scalar float32).  The B S
     tokens are cut into groups of min(group_size, B S), which must divide
     them."""
@@ -96,6 +98,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, t
     dt = x.dtype
 
     xg = x.reshape(G, Sg, d)
+    xg = with_logical_constraint(xg, ("batch", None, "act_embed"), rules)
     gates, ids, aux = _route(p["router"], xg, cfg)
     pos, keep = dispatch(ids, cfg, C)
     gates = torch.where(keep, gates, 0.0)
@@ -105,22 +108,26 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, t
     # past the buffer: its one-hot row is cut off (zero)
     oh_e = F.one_hot(ids, E).to(dt)                                   # (G, S, k, E)
     oh_c = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C].to(dt)  # (G, S, k, C)
-    disp = torch.einsum("gske,gskc->gsec", oh_e, oh_c)
-    comb = torch.einsum("gske,gskc,gsk->gsec", oh_e, oh_c, gates.to(dt))
+    disp = einsum("gske,gskc->gsec", oh_e, oh_c)
+    comb = einsum("gske,gskc,gsk->gsec", oh_e, oh_c, gates.to(dt))
 
-    xe = torch.einsum("gsd,gsec->gecd", xg, disp)                    # (G, E, C, d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wi_gate"].to(dt)))
-    h = h * torch.einsum("gecd,edf->gecf", xe, p["wi_up"].to(dt))
-    ye = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))
-    y = torch.einsum("gecd,gsec->gsd", ye, comb)                     # (G, S, d)
+    xe = einsum("gsd,gsec->gecd", xg, disp)                    # (G, E, C, d)
+    xe = with_logical_constraint(xe, ("batch", "experts", None, "act_embed"), rules)
+    h = F.silu(einsum("gecd,edf->gecf", xe, p["wi_gate"].to(dt)))
+    h = h * einsum("gecd,edf->gecf", xe, p["wi_up"].to(dt))
+    h = with_logical_constraint(h, ("batch", "experts", None, "expert_mlp"), rules)
+    ye = einsum("gecf,efd->gecd", h, p["wo"].to(dt))
+    ye = with_logical_constraint(ye, ("batch", "experts", None, "act_embed"), rules)
+    y = einsum("gecd,gsec->gsd", ye, comb)                     # (G, S, d)
+    y = with_logical_constraint(y, ("batch", None, "act_embed"), rules)
     return y.reshape(Bb, S, d), cfg.router_aux_weight * aux
 
 
-def moe_decode(p: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+def moe_decode(p: dict, x: torch.Tensor, cfg: MoEConfig, rules=None) -> torch.Tensor:
     """Decode-path MoE (B tokens, S=1): the same dispatch over one group,
     its capacity recomputed from group_size = min(group_size, B S)."""
     y, _ = moe_apply(p, x, cfg._replace(
-        group_size=min(cfg.group_size, x.shape[0] * x.shape[1])))
+        group_size=min(cfg.group_size, x.shape[0] * x.shape[1])), rules)
     return y
 
 

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding.rules import (einsum, is_dtensor, local_along, on_shards,
+                              with_logical_constraint)
 from .layers import rmsnorm
 from .spec import ParamSpec
 
@@ -88,7 +90,11 @@ def _split_proj(p: dict, u: torch.Tensor, cfg: SSMConfig):
 
 
 def _conv_mix(p: dict, xbc: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
-    """Depthwise causal conv1d, width W, over (B, S, C)."""
+    """Depthwise causal conv1d, width W, over (B, S, C); on a DTensor, on
+    each rank's shard (S unsplit, the weights split as the channels)."""
+    if is_dtensor(xbc):
+        x, (w, b), wrap = local_along(xbc, 1, p["conv_w"], p["conv_b"])
+        return wrap(_conv_mix({"conv_w": w, "conv_b": b}, x, cfg))
     W, S = cfg.conv_width, xbc.shape[1]
     pad = F.pad(xbc, (0, 0, W - 1, 0))
     out = torch.zeros_like(xbc)
@@ -104,17 +110,17 @@ def _dt_and_log_a(p: dict, dt_raw: torch.Tensor, cfg: SSMConfig):
     return dt, dt * A
 
 
-def ssm_train(p: dict, u: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
+def ssm_train(p: dict, u: torch.Tensor, cfg: SSMConfig, rules=None) -> torch.Tensor:
     """Full-sequence SSD, u (B, S, d_model): through the chunk-scan kernel
     with ``cfg.use_pallas``, else the chunked plain scan."""
-    y, _ = _ssm_forward(p, u, cfg)
+    y, _ = _ssm_forward(p, u, cfg, rules)
     return y
 
 
-def ssm_train_with_state(p: dict, u: torch.Tensor,
-                         cfg: SSMConfig) -> tuple[torch.Tensor, dict]:
+def ssm_train_with_state(p: dict, u: torch.Tensor, cfg: SSMConfig,
+                         rules=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence SSD that also returns the decode cache (prefill path)."""
-    return _ssm_forward(p, u, cfg, want_state=True)
+    return _ssm_forward(p, u, cfg, rules, want_state=True)
 
 
 def mix_inputs(p: dict, u: torch.Tensor, cfg: SSMConfig):
@@ -148,39 +154,40 @@ def chunked_scan(xh, dt, log_a, Bmat, Cmat, Q: int):
         return t.reshape(B, nc, Q, *t.shape[2:]).transpose(0, 1)  # (nc, B, Q, ...)
 
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
-    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+    state = xh.new_zeros((B, H, P, N), dtype=torch.float32)   # a DTensor on DTensors
     ys = []
     for xq, bq, cq, dtq, laq in zip(chunks(xh), chunks(Bmat), chunks(Cmat),
                                     chunks(dt), chunks(log_a)):
-        lcum = torch.cumsum(laq, dim=1)                           # (B, Q, H) inclusive
+        lcum = on_shards(torch.cumsum, laq, (1,), 1)              # (B, Q, H) inclusive
         # intra-chunk: M[t,s] = (C_t.B_s) * exp(lcum_t - lcum_s) * dt_s, s <= t
-        scores = torch.einsum("btn,bsn->bts", cq, bq)             # (B, Q, Q)
+        scores = einsum("btn,bsn->bts", cq, bq)             # (B, Q, Q)
         decay = lcum[:, :, None, :] - lcum[:, None, :, :]         # (B, t, s, H)
         m = torch.where(causal[None, :, :, None], torch.exp(decay), 0.0)
         w = scores[..., None] * m * dtq[:, None, :, :]            # (B, t, s, H)
-        y_intra = torch.einsum("btsh,bshp->bthp", w.to(xq.dtype), xq)
+        y_intra = einsum("btsh,bshp->bthp", w.to(xq.dtype), xq)
         # inter-chunk: exp(lcum_t) * (C_t . state carried in)
-        y_inter = torch.einsum("btn,bhpn->bthp", cq.float(), state)
+        y_inter = einsum("btn,bhpn->bthp", cq.float(), state)
         y_inter = y_inter * torch.exp(lcum)[..., None]
         # state update: exp(l_end) state + sum_s exp(l_end - l_s) dt_s B_s (x) x_s
         l_end = lcum[:, -1, :]                                    # (B, H)
         w_state = torch.exp(l_end[:, None, :] - lcum) * dtq       # (B, Q, H)
-        bx = torch.einsum("bqh,bqn,bqhp->bhpn", w_state, bq.float(), xq.float())
+        bx = einsum("bqh,bqn,bqhp->bhpn", w_state, bq.float(), xq.float())
         state = torch.exp(l_end)[:, :, None, None] * state + bx
         ys.append(y_intra.float() + y_inter)
     return torch.stack(ys, dim=1).reshape(B, S, H, P), state
 
 
-def _ssm_forward(p: dict, u: torch.Tensor, cfg: SSMConfig, want_state: bool = False):
+def _ssm_forward(p: dict, u: torch.Tensor, cfg: SSMConfig, rules=None,
+                 want_state: bool = False):
     S = u.shape[1]
     (xh, dt, log_a, Bmat, Cmat, Q), (z, xbc_raw) = mix_inputs(p, u, cfg)
 
     if cfg.use_pallas and not want_state:
         y = ops.ssd_mix(xh, dt, log_a, Bmat, Cmat, chunk=Q)
-        return _ssm_epilogue(p, u, y, xh, z, cfg), None
+        return _ssm_epilogue(p, u, y, xh, z, cfg, rules), None
 
     y, state = chunked_scan(xh, dt, log_a, Bmat, Cmat, Q)
-    out = _ssm_epilogue(p, u, y, xh, z, cfg)
+    out = _ssm_epilogue(p, u, y, xh, z, cfg, rules)
     if not want_state:
         return out, None
     cache = {
@@ -191,34 +198,35 @@ def _ssm_forward(p: dict, u: torch.Tensor, cfg: SSMConfig, want_state: bool = Fa
     return out, cache
 
 
-def _ssm_epilogue(p, u, y, xh, z, cfg: SSMConfig):
+def _ssm_epilogue(p, u, y, xh, z, cfg: SSMConfig, rules=None):
     """D-skip, gating, norm, out-projection shared by both paths."""
     B, S, _ = u.shape
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, cfg.d_inner).to(u.dtype)
     y = y * F.silu(z)
     y = rmsnorm(p["norm"], y)
+    y = with_logical_constraint(y, ("batch", "seq", "ssm_inner"), rules)
     return y @ p["out_proj"].to(u.dtype)
 
 
-def ssm_decode(p: dict, u: torch.Tensor, cache: SSMCache,
-               cfg: SSMConfig) -> tuple[torch.Tensor, SSMCache]:
+def ssm_decode(p: dict, u: torch.Tensor, cache: SSMCache, cfg: SSMConfig,
+               rules=None) -> tuple[torch.Tensor, SSMCache]:
     """One-token recurrence. u (B, 1, d_model)."""
     B = u.shape[0]
     H, P = cfg.num_heads, cfg.headdim
     z, x, bc, dt_raw = _split_proj(p, u, cfg)
     xbc = torch.cat([x, bc], dim=-1)[:, 0, :]                       # (B, C)
     conv_in = torch.cat([cache.conv, xbc[:, None, :]], dim=1)       # (B, W, C)
-    mixed = torch.einsum("bwc,wc->bc", conv_in.float(), p["conv_w"].float())
+    mixed = einsum("bwc,wc->bc", conv_in.float(), p["conv_w"].float())
     mixed = F.silu(mixed + p["conv_b"].float()).to(u.dtype)
     x1, bc1 = mixed[..., :cfg.d_inner], mixed[..., cfg.d_inner:]
     Bv, Cv = bc1.chunk(2, dim=-1)                                   # (B, N)
 
     dt, log_a = _dt_and_log_a(p, dt_raw[:, 0, :], cfg)              # (B, H)
     xh = x1.reshape(B, H, P).float()
-    bx = torch.einsum("bh,bn,bhp->bhpn", dt, Bv.float(), xh)
+    bx = einsum("bh,bn,bhp->bhpn", dt, Bv.float(), xh)
     new_state = torch.exp(log_a)[:, :, None, None] * cache.state + bx
-    y = torch.einsum("bn,bhpn->bhp", Cv.float(), new_state)
+    y = einsum("bn,bhpn->bhp", Cv.float(), new_state)
     y = y + p["D"].float()[None, :, None] * xh
     y = y.reshape(B, 1, cfg.d_inner).to(u.dtype)
     y = y * F.silu(z)

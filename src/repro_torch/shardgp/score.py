@@ -213,18 +213,28 @@ class ShardedScorer:
         tensors on ``mesh[0]``."""
         self._require_refresh()
         tr = self.tracer
+        # a disabled tracer costs one test and opens no span
+        if not tr.enabled:
+            return self._decide_staged(self._stage(mu, sd, best, selected), speed)
         with tr.span("pad_upload"):
-            mus, sds, sels = self._upload(mu, sd, selected)
-            bests = self._replicated(best)
+            staged = self._stage(mu, sd, best, selected)
         with tr.span("shard_decide", shards=self.num_shards,
                      kernel=self.kernel, k=self.topk):
-            costs = self._costs(speed)
-            c = self._cap // self.num_shards
-            cands = [_score_local(mus[s], sds[s], bests[s], self._member[s],
-                                  costs[s], sels[s], self.kernel, self.topk,
-                                  s * c)
-                     for s in range(self.num_shards)]
-            return tr.sync(self._gather_pick(cands, self.topk))
+            return tr.sync(self._decide_staged(staged, speed))
+
+    def _stage(self, mu, sd, best, selected):
+        """The decision's inputs on the shards' devices: (mus, sds, sels,
+        bests)."""
+        return (*self._upload(mu, sd, selected), self._replicated(best))
+
+    def _decide_staged(self, staged, speed: float):
+        mus, sds, sels, bests = staged
+        costs = self._costs(speed)
+        c = self._cap // self.num_shards
+        cands = [_score_local(mus[s], sds[s], bests[s], self._member[s],
+                              costs[s], sels[s], self.kernel, self.topk, s * c)
+                 for s in range(self.num_shards)]
+        return self._gather_pick(cands, self.topk)
 
     def _upload(self, mu, sd, selected):
         """The per-decision inputs padded to the capacity, one slice per
@@ -257,24 +267,32 @@ class ShardedScorer:
         self._require_refresh()
         k = self.topk if k is None else max(1, k)
         tr = self.tracer
+        # a disabled tracer costs one test and opens no span
+        if not tr.enabled:
+            return self._decide_classes_staged(
+                self._stage_classes(mu, sd, best, selected, rates, overheads), k)
         with tr.span("pad_upload"):
-            mus, sds, sels = self._upload(mu, sd, selected)
-            bests = self._replicated(best)
-            rates = self._replicated(np.asarray(rates, np.float32))
-            overs = self._replicated(np.asarray(overheads, np.float32))
+            staged = self._stage_classes(mu, sd, best, selected, rates, overheads)
         with tr.span("shard_decide", shards=self.num_shards,
                      kernel="eirate_classes", k=k):
-            c = self._cap // self.num_shards
-            cands = []
-            for s in range(self.num_shards):
-                # by tensors: CUDA divides by a host scalar through its
-                # reciprocal
-                cm = (self._cost[s][None, :] / rates[s][:, None]
-                      + overs[s][:, None])
-                scores = ops.eirate_classes(mus[s], sds[s], bests[s],
-                                            self._member[s], cm, sels[s])
-                cands.append(_local_topk(scores, k, s * c))
-            return tr.sync(self._gather_pick(cands, k))
+            return tr.sync(self._decide_classes_staged(staged, k))
+
+    def _stage_classes(self, mu, sd, best, selected, rates, overheads):
+        return (*self._stage(mu, sd, best, selected),
+                self._replicated(np.asarray(rates, np.float32)),
+                self._replicated(np.asarray(overheads, np.float32)))
+
+    def _decide_classes_staged(self, staged, k: int):
+        mus, sds, sels, bests, rates, overs = staged
+        c = self._cap // self.num_shards
+        cands = []
+        for s in range(self.num_shards):
+            # by tensors: CUDA divides by a host scalar through its reciprocal
+            cm = (self._cost[s][None, :] / rates[s][:, None] + overs[s][:, None])
+            scores = ops.eirate_classes(mus[s], sds[s], bests[s],
+                                        self._member[s], cm, sels[s])
+            cands.append(_local_topk(scores, k, s * c))
+        return self._gather_pick(cands, k)
 
     def readout_decide_topk(self, W, alpha, mu0, kdiag, best, selected,
                             speed: float = 1.0):

@@ -646,24 +646,12 @@ class StreamEngine:
         d = self._free.pop(i)
         s = self.fleet.slices[d]
         owner = self._owner_of_model[model]
-        with self.tracer.span("launch", model=model, device=d):
-            dur = self._duration_on(model, s)
-            end = self._t + dur
-            self.cp.record_start(model)
-            self._fault("mid_launch")
-            ti = len(self._trials)
-            s.current_trial = ti
-            s.busy_until = end
-            self._trials.append(StreamTrial(
-                model, owner.key, model - owner.model_start, hint, d,
-                self._t, end, None))
-            self._push(end, "finish", (d, model, ti))
-            if self.timeout_factor is not None:
-                # deadline = k x predicted seconds; pushed after the finish
-                # at the same heap discipline, so an on-time completion's
-                # deadline pops later as a logged no-op
-                self._push(self._t + self.timeout_factor * dur,
-                           "timeout", (d, model, ti))
+        # a disabled tracer costs one test here and opens no span
+        if self.tracer.enabled:
+            with self.tracer.span("launch", model=model, device=d):
+                dur = self._commit_launch(d, s, owner, model, hint)
+        else:
+            dur = self._commit_launch(d, s, owner, model, hint)
         if self.metrics is not None:
             self._m_launches.inc()
             self.metrics.counter("engine.launches_by_class",
@@ -672,6 +660,28 @@ class StreamEngine:
             self.health.on_launch(self._t, self.event_index, owner.key,
                                   model, s.cls)
         self.telemetry.on_launch(self._t, owner.key, model, d, dur)
+
+    def _commit_launch(self, d: int, s, owner, model: int, hint: int) -> float:
+        """The launch itself: the trial, its finish (and deadline) events;
+        returns its duration."""
+        dur = self._duration_on(model, s)
+        end = self._t + dur
+        self.cp.record_start(model)
+        self._fault("mid_launch")
+        ti = len(self._trials)
+        s.current_trial = ti
+        s.busy_until = end
+        self._trials.append(StreamTrial(
+            model, owner.key, model - owner.model_start, hint, d,
+            self._t, end, None))
+        self._push(end, "finish", (d, model, ti))
+        if self.timeout_factor is not None:
+            # deadline = k x predicted seconds; pushed after the finish
+            # at the same heap discipline, so an on-time completion's
+            # deadline pops later as a logged no-op
+            self._push(self._t + self.timeout_factor * dur,
+                       "timeout", (d, model, ti))
+        return dur
 
     def _duration_on(self, model: int, s) -> float:
         """Trial duration of ``model`` on slice ``s`` — the rank-1
@@ -706,7 +716,10 @@ class StreamEngine:
             i = self._pick_free_index()
             s = self.fleet.slices[self._free[i]]
             t0 = _time.perf_counter()
-            with self.tracer.span("decide", device=self._free[i]):
+            if self.tracer.enabled:
+                with self.tracer.span("decide", device=self._free[i]):
+                    pick = self._chooser(device_speed=s.speed)
+            else:
                 pick = self._chooser(device_speed=s.speed)
             dt = _time.perf_counter() - t0
             self._decision_seconds += dt
@@ -811,47 +824,21 @@ class StreamEngine:
                 break
             self._t = t
             self.event_index += 1
-            # one trace per processed event; the id IS the event index, so
-            # the log's trace field and a replayed suffix's span tree both
-            # correlate for free
-            self.tracer.begin_trace(self.event_index)
+            # a disabled tracer costs one test an event and opens no span
+            traced = self.tracer.enabled
+            if traced:
+                # one trace per processed event; the id IS the event index,
+                # so the log's trace field and a replayed suffix's span tree
+                # both correlate for free
+                self.tracer.begin_trace(self.event_index)
             if self.forensics is not None:
                 self.forensics.begin_event(t, self.event_index)
             self._fault("before")
-            with self.tracer.span("event", kind=kind):
-                if kind == "arrive":
-                    self._handle_arrive(*payload)
-                elif kind == "depart":
-                    self._handle_depart(*payload)
-                elif kind == "finish":
-                    self._handle_finish(*payload)
-                elif kind == "slice_fail":
-                    self._handle_slice_fail(*payload)
-                elif kind == "recover":
-                    self._handle_recover(*payload)
-                elif kind == "timeout":
-                    self._handle_timeout(*payload)
-                elif kind == "retry":
-                    self._handle_retry(*payload)
-                elif kind == "hang":
-                    self._handle_hang(*payload)
-                elif kind == "poison":
-                    self._handle_poison(*payload)
-                elif kind == "mesh_shrink":
-                    self._handle_mesh_shrink(*payload)
-                else:
-                    self._dispatch_extra(kind, payload)
-                self.log.append_processed(self.event_index, t, kind,
-                                          self._encode_payload(kind, payload),
-                                          trace=self.tracer.current_trace)
-                self._post_event(kind)
-                # simultaneous arrivals are admitted as one batch before any
-                # launch — this is what makes the churn-free replay line up
-                # with simulate()'s pre-built warm-start queue
-                if not (kind == "arrive" and self._heap
-                        and self._heap[0][0] == t
-                        and self._heap[0][2] == "arrive"):
-                    self._try_launch(horizon)
+            if traced:
+                with self.tracer.span("event", kind=kind):
+                    self._process(t, kind, payload, horizon)
+            else:
+                self._process(t, kind, payload, horizon)
             if self.metrics is not None:
                 self._m_events.inc()
                 self._m_queue.set(len(self._admission_queue))
@@ -893,6 +880,43 @@ class StreamEngine:
             telemetry=self.telemetry, tenants=self._tenants,
             compaction_moves=self._compaction_moves,
             policy_launches=self._policy_launches)
+
+    def _process(self, t: float, kind: str, payload, horizon: float) -> None:
+        """One popped event: its handler, its processed record, and the
+        launches it frees up."""
+        if kind == "arrive":
+            self._handle_arrive(*payload)
+        elif kind == "depart":
+            self._handle_depart(*payload)
+        elif kind == "finish":
+            self._handle_finish(*payload)
+        elif kind == "slice_fail":
+            self._handle_slice_fail(*payload)
+        elif kind == "recover":
+            self._handle_recover(*payload)
+        elif kind == "timeout":
+            self._handle_timeout(*payload)
+        elif kind == "retry":
+            self._handle_retry(*payload)
+        elif kind == "hang":
+            self._handle_hang(*payload)
+        elif kind == "poison":
+            self._handle_poison(*payload)
+        elif kind == "mesh_shrink":
+            self._handle_mesh_shrink(*payload)
+        else:
+            self._dispatch_extra(kind, payload)
+        self.log.append_processed(self.event_index, t, kind,
+                                  self._encode_payload(kind, payload),
+                                  trace=self.tracer.current_trace)
+        self._post_event(kind)
+        # simultaneous arrivals are admitted as one batch before any launch
+        # — this is what makes the churn-free replay line up with
+        # simulate()'s pre-built warm-start queue
+        if not (kind == "arrive" and self._heap
+                and self._heap[0][0] == t
+                and self._heap[0][2] == "arrive"):
+            self._try_launch(horizon)
 
     # ---- snapshot / restore (event sourcing, DESIGN.md §12) ----------------
 

@@ -8,7 +8,8 @@ history lines and return codes equal to the reference's.  Written out by
 hand are only what the port adds: the card's power limit in the
 environment match, and ``main`` reading ``BENCH_torch_*.json`` alone.
 Then ``repro_torch.benchmarks.run``: its strict parsing, ``roofline``
-raising ``NotImplementedError``, the CLI failing without a card, and one
+emitting ``roofline_missing`` without a dry run, the CLI failing without a
+card, and one
 section's payload written and compared.
 """
 
@@ -216,12 +217,18 @@ def test_run_lists_every_section(capsys):
         assert f"\n  {section} " in helptext
 
 
-def test_roofline_raises(tmp_path, monkeypatch):
+def test_roofline_raises(tmp_path, monkeypatch, capsys):
+    """The roofline section, once a stub that raised, reads the port's dry
+    run: with no probe record it emits ``roofline_missing``, as the JAX
+    package's does, and needs no card."""
+    from repro_torch.core import cost_model as t_cm
+
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(sys, "argv", ["run", "control", "roofline"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_run.main()
-    assert not list(tmp_path.glob("BENCH_*.json"))
+    monkeypatch.setattr(t_cm, "DRYRUN_DIR", tmp_path / "dryrun_torch")
+    monkeypatch.setattr(sys, "argv", ["run", "roofline"])
+    t_run.main()
+    assert "roofline_missing,0.0,note=" in capsys.readouterr().out
+    assert [p.name for p in tmp_path.glob("BENCH_*.json")] == ["BENCH_torch_roofline.json"]
 
 
 def test_cli_needs_a_card(tmp_path, monkeypatch, capsys):

@@ -354,6 +354,41 @@ def test_attention_decode_without_write_back_equals_reference(length):
     torch.testing.assert_close(c_wb.v[:, slot:slot + 1], c.v, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("length", [5, 21])
+def test_attention_decode_without_write_back_equals_reference_bf16(length):
+    """The same branch in the config's bfloat16 (the cache, the input and
+    the output in bfloat16, float32 parameters cast at use), before the ring
+    wraps and after: the output and the returned new-token projections
+    equal the reference's branch bit for bit, the reference run op by op
+    (as ``attention_decode`` is called, outside ``jit``, whose fusions
+    keep some bfloat16 intermediates in float32: the module docstring)."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    jcfg = jax_smoke_config("qwen3-4b")
+    assert jcfg.compute_dtype == jnp.bfloat16
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    jp = jax.tree.map(lambda a: np.asarray(a)[0], jparams["blocks"]["attn"])
+    tp = convert.model_params(jp, "cpu")
+    acfg = jcfg.attn_cfg
+    tcfg = get_smoke_config("qwen3-4b").attn_cfg
+    rng = np.random.default_rng(length)
+    B, size = 2, 16
+    shape = (B, size, acfg.num_kv_heads, acfg.head_dim)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    x = rng.standard_normal((B, 1, acfg.d_model)).astype(np.float32)
+
+    jk, jv, jx = (jnp.asarray(a, jnp.bfloat16) for a in (k, v, x))
+    jy, jc = jattn.attention_decode(jp, jx, jattn.KVCache(jk, jv, jnp.int32(length)),
+                                    acfg, None, write_back=False)
+    tk, tv, tx = (torch.from_numpy(a).to(torch.bfloat16) for a in (k, v, x))
+    cache = tattn.KVCache(tk, tv, torch.tensor(length, dtype=torch.int32))
+    y, c = tattn.attention_decode(tp, tx, cache, tcfg, write_back=False)
+    assert y.dtype == c.k.dtype == c.v.dtype == torch.bfloat16
+    for got, want in ((y, jy), (c.k, jc.k), (c.v, jc.v)):
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    assert int(c.length) == int(jc.length) == length + 1
+
+
 def test_engine_refuses_parameters_elsewhere():
     cfg = get_smoke_config("qwen3-4b")
     params = init_params(cfg, 0, device="cpu")

@@ -9,9 +9,17 @@ hints and devices exact; times within 1e-5, as ``assert_episode_matches``
 holds them), and the step logs agree with the reference's (regret curves
 to float32 rounding: the port sums over tenants as a pairwise tree; step
 times and observed models exact; ``decisions`` equal).  The ``random``
-baseline draws from another stream than the reference's, so it is held to
-its invariants, to its own determinism and, over 2,000 seeds, to the
-uniform law of the first policy pick, in both packages.
+baseline draws the reference's threefry stream: its keys, raw bits and
+uniforms equal ``jax.random``'s on several keys, its categorical picks
+equal ``jax.random.categorical``'s, and its episodes on the Fig. 2 and
+Fig. 4 problems equal the reference's trial for trial.  Its Gumbels are
+``-log(-log(u))`` with each log in float64 rounded once, where XLA's
+float32 log is off by up to an ulp: they are held to 2 float32 ulps of
+max(|g|, 1), and a
+pick could part from the reference's only where two tenants' Gumbels lie
+that close (none does in these episodes).  It is also held to its
+invariants, its own determinism and, over 2,000 seeds, to the uniform law
+of the first policy pick, in both packages.
 """
 
 import numpy as np
@@ -267,6 +275,48 @@ def test_random_invariants_and_determinism():
     # the stream is the seed's: other seeds give other episodes
     firsts = {tuple(batch.trial_model[i, warm:warm + 4]) for i in range(4)}
     assert len(firsts) > 1
+
+
+def test_threefry_stream_equals_jax():
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    tiny = np.finfo(np.float32).tiny
+    mask = np.arange(37) % 3 == 0
+    for seed in (0, 1, 7, 12345, 2**31 + 5):
+        key = jax.random.PRNGKey(np.uint32(seed))
+        k1, k2 = sim_batched.prng_key(seed)
+        assert [int(k1), int(k2)] == np.asarray(key).tolist()
+        for _ in range(4):
+            key, sub = jax.random.split(key)
+            (k1, k2), (s1, s2) = sim_batched.split(k1, k2)
+            assert [int(k1), int(k2)] == np.asarray(key).tolist()
+            assert [int(s1), int(s2)] == np.asarray(sub).tolist()
+            bits = sim_batched.random_bits(torch.tensor(s1), torch.tensor(s2), 37)
+            np.testing.assert_array_equal(
+                bits.numpy(), np.asarray(jax.random.bits(sub, (37,), jnp.uint32)))
+            np.testing.assert_array_equal(
+                sim_batched.uniform(bits).numpy(),
+                np.asarray(jax.random.uniform(sub, (37,), jnp.float32, tiny, 1.0)))
+            g = sim_batched.gumbel(bits).numpy()
+            want = np.asarray(jax.random.gumbel(sub, (37,), jnp.float32))
+            # the outer log's error is absolute near g = 0: ulps of max(|g|, 1)
+            assert np.all(np.abs(g - want) <= 2 * np.spacing(np.maximum(np.abs(want), 1)))
+            logits = jnp.where(jnp.asarray(mask), -jnp.inf, 0.0)
+            assert int(jax.random.categorical(sub, logits)) == \
+                int(np.argmax(np.where(mask, -np.inf, g)))
+
+
+@pytest.mark.parametrize("M", [1, 4])
+def test_random_episodes_equal_reference(M):
+    """Every random episode on the Fig. 2 (M = 1) and Fig. 4 (M = 4)
+    problems takes the reference's trials: models, hints, devices."""
+    for make in ("azure_problem", "deeplearning_problem"):
+        rows = [("random", M, seed, {}) for seed in range(3)]
+        problem = lambda m, make=make: getattr(m, make)()  # noqa: E731
+        want, got = _pair(rows, problem=problem)
+        np.testing.assert_array_equal(got.trial_model, want.trial_model)
+        np.testing.assert_array_equal(got.trial_user, want.trial_user)
+        np.testing.assert_array_equal(got.trial_device, want.trial_device)
 
 
 @pytest.mark.parametrize("pkg", ["reference", "port"])

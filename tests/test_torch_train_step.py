@@ -304,9 +304,21 @@ def test_smoke_train_step_improves_loss():
 
 
 def test_rules_are_not_ported():
+    """Once refused, the axis rules are ported (``repro_torch.sharding``):
+    on plain tensors, outside a mesh, ``make_train_step(cfg, opt,
+    DEFAULT_RULES)`` is the one-device step bit for bit (every constraint
+    is a no-op there); the sharded step is ``tests/test_torch_sharding.py``'s."""
+    from repro_torch.sharding import DEFAULT_RULES
+
     cfg = get_smoke_config("olmo-1b")
-    with pytest.raises(NotImplementedError, match="rules"):
-        make_train_step(cfg, OptConfig(), rules=object())
+    params = init_params(cfg, 0, device="cpu")
+    state = TrainState(params, adamw_init(params, OptConfig()))
+    _, batch = _batch(cfg, 2, 32)
+    got, gmet = make_train_step(cfg, OptConfig(), DEFAULT_RULES)(state, batch)
+    want, wmet = make_train_step(cfg, OptConfig())(state, batch)
+    assert torch.equal(gmet["loss"], wmet["loss"])
+    for a, b in zip(tree_leaves(got, _is_tensor), tree_leaves(want, _is_tensor), strict=True):
+        assert torch.equal(a, b)
 
 
 # --- remat -----------------------------------------------------------------------------

@@ -51,6 +51,8 @@ class _Null:
 class _PlainTracer:
     """A disabled tracer in plain Python, so step 1 imports no torch."""
 
+    enabled = False
+
     def __init__(self):
         self._null = _Null()
 
@@ -149,6 +151,8 @@ def main() -> int:
         summary[order] = dict(
             overhead_ge_1pct=fails(f"overhead_{order}", "overhead_pct",
                                    lambda v: v >= 1.0),
+            overhead_ge_0p5pct=fails(f"overhead_{order}", "overhead_pct",
+                                     lambda v: v >= 0.5),
             attributed_lt_80pct=fails(f"gap_{order}", "attributed_pct", lambda v: v < 80.0),
             overhead_pct=[r[f"overhead_{order}"]["overhead_pct"] for r in rows],
             attributed_pct=[r[f"gap_{order}"]["attributed_pct"] for r in rows])
