@@ -73,6 +73,7 @@ import torch
 
 from ..device import resolve
 from ..kernels.ref import expected_improvement, ftz, rn
+from ..obs.trace import NULL_TRACER, Tracer
 from .control_plane import no_obs_floor, warm_start_queue
 from .gp import DEFAULT_JITTER
 from .scheduler import POLICIES, SimResult, TrialRecord
@@ -505,6 +506,7 @@ def simulate_batch(
     jitter: float = DEFAULT_JITTER,
     *,
     device=None,
+    tracer: Tracer = NULL_TRACER,
 ) -> BatchResult:
     """Run a batch of TSHB episodes as one stream of batched tensor steps.
 
@@ -516,6 +518,9 @@ def simulate_batch(
         semantics as ``scheduler.simulate``, shared by the whole batch).
       device: where the tensors live; ``None`` is the card (raises without
         one), ``"cpu"`` runs the same arithmetic on the CPU.
+      tracer: an enabled :class:`~repro_torch.obs.Tracer` records the
+        call's phases as spans; the default records nothing, waits for
+        nothing and leaves the call's operations as they are.
 
     Returns:
       :class:`BatchResult` with launch-ordered trial logs, event-ordered
@@ -525,107 +530,136 @@ def simulate_batch(
       first call of a process also carries CUDA's warm-up (context, the
       first launch of each operation), where the reference's carries its
       jit compile.
+
+    Spans, in order, under the root ``simulate_batch`` (attrs ``episodes``
+    B, ``models`` n, ``steps`` T, ``policies`` sorted): ``validate``,
+    ``block_shape``, ``pack`` (the host arrays), ``sub_keys`` (the
+    ``random`` key chains), ``upload`` (attr ``bytes_h2d``: the bytes sent
+    to the device), ``loop`` (attr ``steps``: the host's dispatch of the T
+    steps), ``drain`` (``tracer.sync`` on the logs: how far the device lags
+    the host), ``copy_back`` (attr ``bytes_d2h``), ``trial_logs`` and
+    ``assemble``.  With tracing on, ``wall_seconds`` is ``upload`` +
+    ``loop`` + ``drain`` + ``copy_back``.
     """
     specs = tuple(specs)
     if not specs:
         raise ValueError("specs must be non-empty")
     dev = resolve(device)
-    problem.validate()
-    N, m = _block_shape(problem)
-    n = N * m
+    n = problem.num_models
     B = len(specs)
     Mmax = max(s.num_devices for s in specs)
     T = n + Mmax
+    with tracer.span("simulate_batch", episodes=B, models=n, steps=T,
+                     policies=tuple(sorted({s.policy for s in specs}))):
+        with tracer.span("validate"):
+            problem.validate()
+        with tracer.span("block_shape"):
+            N, m = _block_shape(problem)
 
-    K = np.asarray(problem.K, np.float32)
-    Kb = np.stack([K[i * m:(i + 1) * m, i * m:(i + 1) * m] for i in range(N)])
-    kdiag_b = np.stack([np.diag(Kb[i]) for i in range(N)])
-    mu0_b = np.asarray(problem.mu0, np.float32).reshape(N, m)
-    cost = np.asarray(problem.cost, np.float32)
-    pending = np.asarray(warm_start_queue(problem, warm_start), np.int64)
-    floor = no_obs_floor(problem)
+        with tracer.span("pack"):
+            K = np.asarray(problem.K, np.float32)
+            Kb = np.stack([K[i * m:(i + 1) * m, i * m:(i + 1) * m] for i in range(N)])
+            kdiag_b = np.stack([np.diag(Kb[i]) for i in range(N)])
+            mu0_b = np.asarray(problem.mu0, np.float32).reshape(N, m)
+            cost = np.asarray(problem.cost, np.float32)
+            pending = np.asarray(warm_start_queue(problem, warm_start), np.int64)
+            floor = no_obs_floor(problem)
 
-    policy_id = np.asarray([_POLICY_ID[s.policy] for s in specs], np.int64)
-    num_devices = np.asarray([s.num_devices for s in specs], np.int64)
-    speeds = np.ones((B, Mmax), np.float32)
-    for i, s in enumerate(specs):
-        if s.device_speeds is not None:
-            speeds[i, :s.num_devices] = np.asarray(s.device_speeds, np.float32)
-    z_true_b = np.stack([
-        np.asarray(s.z_true if s.z_true is not None else problem.z_true,
-                   np.float32)
-        for s in specs])
-    if z_true_b.shape != (B, n):
-        raise ValueError(f"per-episode z_true must have shape ({n},)")
-    mem = np.asarray(problem.membership, bool)
-    z_star_b = np.where(mem[None], z_true_b[:, None, :], -np.inf).max(-1)
-    worst_b = np.where(mem[None], z_true_b[:, None, :], np.inf).min(-1)
-    # tenants padded to a power of two for the pairwise sum (gap 0 there)
-    Np = 1 << (N - 1).bit_length()
-    pad = ((0, 0), (0, Np - N))
-    z_star_p = np.pad(z_star_b.astype(np.float32), pad)
-    worst_p = np.pad(worst_b.astype(np.float32), pad)
-    sub_keys = _sub_keys(specs, T)
+            policy_id = np.asarray([_POLICY_ID[s.policy] for s in specs], np.int64)
+            num_devices = np.asarray([s.num_devices for s in specs], np.int64)
+            speeds = np.ones((B, Mmax), np.float32)
+            for i, s in enumerate(specs):
+                if s.device_speeds is not None:
+                    speeds[i, :s.num_devices] = np.asarray(s.device_speeds, np.float32)
+            z_true_b = np.stack([
+                np.asarray(s.z_true if s.z_true is not None else problem.z_true,
+                           np.float32)
+                for s in specs])
+            if z_true_b.shape != (B, n):
+                raise ValueError(f"per-episode z_true must have shape ({n},)")
+            mem = np.asarray(problem.membership, bool)
+            z_star_b = np.where(mem[None], z_true_b[:, None, :], -np.inf).max(-1)
+            worst_b = np.where(mem[None], z_true_b[:, None, :], np.inf).min(-1)
+            # device slots: finish time and launch-seq tiebreak; the t=0 fill
+            # order is the free-stack pop order M-1, M-2, ..., 0
+            dev_ids = np.arange(Mmax)
+            alive = dev_ids[None, :] < num_devices[:, None]
+            dev_end = np.where(alive, 0.0, np.inf).astype(np.float32)
+            dev_seq = np.where(alive, -1 - dev_ids[None, :], _IDLE_SEQ).astype(np.int64)
+            # tenants padded to a power of two for the pairwise sum (gap 0 there)
+            Np = 1 << (N - 1).bit_length()
+            pad = ((0, 0), (0, Np - N))
+            z_star_p = np.pad(z_star_b.astype(np.float32), pad)
+            worst_p = np.pad(worst_b.astype(np.float32), pad)
+        with tracer.span("sub_keys"):
+            sub_keys = _sub_keys(specs, T)
 
-    t0 = _time.perf_counter()
-    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    c = dict(Kb=up(Kb), mu0_b=up(mu0_b), kdiag_b=up(kdiag_b), cost=up(cost),
-             pending=up(pending), pid=up(policy_id), speed=up(speeds),
-             z_true=up(z_true_b), z_star=up(z_star_p), sub=up(sub_keys),
-             policies={s.policy for s in specs}, unit_speed=bool((speeds == 1).all()),
-             jitter=torch.tensor(jitter, dtype=torch.float32, device=dev),
-             floor=torch.tensor(floor, dtype=torch.float32, device=dev))
-    dev_ids = np.arange(Mmax)
-    alive = dev_ids[None, :] < num_devices[:, None]
-    mu0_t, var0 = c["mu0_b"], torch.clamp_min(c["kdiag_b"], 0.0)
-    s = dict(
-        # device slots: finish time, running model, launch-seq tiebreak;
-        # the t=0 fill order is the free-stack pop order M-1, M-2, ..., 0
-        dev_end=up(np.where(alive, 0.0, np.inf).astype(np.float32)),
-        dev_model=torch.full((B, Mmax), -1, dtype=torch.int64, device=dev),
-        dev_seq=up(np.where(alive, -1 - dev_ids[None, :], _IDLE_SEQ).astype(np.int64)),
-        # the fold's running sums (see the module docstring) and posterior
-        P=torch.zeros((B, N, m, m), dtype=torch.float32, device=dev),
-        dot=torch.zeros((B, N, m), dtype=torch.float32, device=dev),
-        postmu=mu0_t.expand(B, N, m).clone(),
-        postvar=var0.expand(B, N, m).clone(),
-        ei=expected_improvement(mu0_t, rn(torch.sqrt, var0),
-                                c["floor"]).expand(B, N, m).clone(),
-        # policy state
-        selected=torch.zeros((B, n), dtype=torch.bool, device=dev),
-        best_raw=torch.full((B, N), float("-inf"), dtype=torch.float32, device=dev),
-        has_obs=torch.zeros((B, N), dtype=torch.bool, device=dev),
-        rr_ptr=torch.zeros(B, dtype=torch.int64, device=dev),
-        pend_ptr=torch.zeros(B, dtype=torch.int64, device=dev),
-        counter=torch.zeros(B, dtype=torch.int64, device=dev),
-        decisions=torch.zeros(B, dtype=torch.int64, device=dev),
-        # regret integration (regret.py convention: pre-observation best
-        # clamped to the worst in-set value)
-        best_true=up(worst_p),
-        t_prev=torch.zeros(B, dtype=torch.float32, device=dev),
-        cum=torch.zeros(B, dtype=torch.float32, device=dev),
-    )
-    s["gsum"] = _tree_sum(c["z_star"] - s["best_true"])
-    with _no_host_sync(dev):
-        steps = _step_loop(c, s, T)
-    steps = {k: v.cpu().numpy() for k, v in steps.items()}
-    wall = _time.perf_counter() - t0
+        t0 = _time.perf_counter()
+        # the arrays below, and jitter and floor as float32 scalars
+        sent = (Kb, mu0_b, kdiag_b, cost, pending, policy_id, speeds, z_true_b,
+                z_star_p, sub_keys, dev_end, dev_seq, worst_p)
+        with tracer.span("upload", bytes_h2d=sum(a.nbytes for a in sent) + 2 * 4):
+            up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            c = dict(Kb=up(Kb), mu0_b=up(mu0_b), kdiag_b=up(kdiag_b), cost=up(cost),
+                     pending=up(pending), pid=up(policy_id), speed=up(speeds),
+                     z_true=up(z_true_b), z_star=up(z_star_p), sub=up(sub_keys),
+                     policies={s.policy for s in specs},
+                     unit_speed=bool((speeds == 1).all()),
+                     jitter=torch.tensor(jitter, dtype=torch.float32, device=dev),
+                     floor=torch.tensor(floor, dtype=torch.float32, device=dev))
+            mu0_t, var0 = c["mu0_b"], torch.clamp_min(c["kdiag_b"], 0.0)
+            s = dict(
+                # device slots: finish time, running model, launch-seq tiebreak
+                dev_end=up(dev_end),
+                dev_model=torch.full((B, Mmax), -1, dtype=torch.int64, device=dev),
+                dev_seq=up(dev_seq),
+                # the fold's running sums (see the module docstring) and posterior
+                P=torch.zeros((B, N, m, m), dtype=torch.float32, device=dev),
+                dot=torch.zeros((B, N, m), dtype=torch.float32, device=dev),
+                postmu=mu0_t.expand(B, N, m).clone(),
+                postvar=var0.expand(B, N, m).clone(),
+                ei=expected_improvement(mu0_t, rn(torch.sqrt, var0),
+                                        c["floor"]).expand(B, N, m).clone(),
+                # policy state
+                selected=torch.zeros((B, n), dtype=torch.bool, device=dev),
+                best_raw=torch.full((B, N), float("-inf"), dtype=torch.float32, device=dev),
+                has_obs=torch.zeros((B, N), dtype=torch.bool, device=dev),
+                rr_ptr=torch.zeros(B, dtype=torch.int64, device=dev),
+                pend_ptr=torch.zeros(B, dtype=torch.int64, device=dev),
+                counter=torch.zeros(B, dtype=torch.int64, device=dev),
+                decisions=torch.zeros(B, dtype=torch.int64, device=dev),
+                # regret integration (regret.py convention: pre-observation best
+                # clamped to the worst in-set value)
+                best_true=up(worst_p),
+                t_prev=torch.zeros(B, dtype=torch.float32, device=dev),
+                cum=torch.zeros(B, dtype=torch.float32, device=dev),
+            )
+            s["gsum"] = _tree_sum(c["z_star"] - s["best_true"])
+        with tracer.span("loop", steps=T), _no_host_sync(dev):
+            steps = _step_loop(c, s, T)
+        with tracer.span("drain"):
+            tracer.sync(list(steps.values()))
+        with tracer.span("copy_back", bytes_d2h=sum(v.nbytes for v in steps.values())):
+            steps = {k: v.cpu().numpy() for k, v in steps.items()}
+        wall = _time.perf_counter() - t0
 
-    tr = _trial_logs(steps, n)
-    tm = tr["model"].astype(np.int32)
-    z_log = np.where(
-        tm >= 0,
-        np.take_along_axis(z_true_b, np.maximum(tm, 0), axis=1),
-        np.nan)
-    return BatchResult(
-        problem=problem, specs=specs, warm_start=warm_start,
-        trial_model=tm, trial_user=tr["hint"].astype(np.int32),
-        trial_device=tr["device"].astype(np.int32),
-        trial_start=tr["start"].astype(np.float32),
-        trial_end=tr["end"].astype(np.float32), trial_z=z_log,
-        obs_model=steps["obs_model"].astype(np.int32), obs_time=steps["obs_time"],
-        inst_regret=steps["inst"], cum_regret=steps["cum"],
-        decisions=steps["decisions"].astype(np.int32),
-        end_time=steps["end_time"],
-        inst0=(z_star_b - worst_b).mean(axis=1),
-        wall_seconds=wall)
+        with tracer.span("trial_logs"):
+            tr = _trial_logs(steps, n)
+        with tracer.span("assemble"):
+            tm = tr["model"].astype(np.int32)
+            z_log = np.where(
+                tm >= 0,
+                np.take_along_axis(z_true_b, np.maximum(tm, 0), axis=1),
+                np.nan)
+            return BatchResult(
+                problem=problem, specs=specs, warm_start=warm_start,
+                trial_model=tm, trial_user=tr["hint"].astype(np.int32),
+                trial_device=tr["device"].astype(np.int32),
+                trial_start=tr["start"].astype(np.float32),
+                trial_end=tr["end"].astype(np.float32), trial_z=z_log,
+                obs_model=steps["obs_model"].astype(np.int32), obs_time=steps["obs_time"],
+                inst_regret=steps["inst"], cum_regret=steps["cum"],
+                decisions=steps["decisions"].astype(np.int32),
+                end_time=steps["end_time"],
+                inst0=(z_star_b - worst_b).mean(axis=1),
+                wall_seconds=wall)

@@ -1,9 +1,13 @@
 """Observability of the port: the reference's planes (``repro.obs``), with
 the same names, records and JSON.
 
-  trace.py      :class:`Tracer` — nestable spans with deterministic ids;
-                ``sync`` waits for the card, and the profiler bridge is
-                ``torch.profiler.record_function``.
+  trace.py      :class:`Tracer` — nestable spans with deterministic ids,
+                each record with its wall time and the thread's CPU time
+                (``cpu_us``); ``sync`` waits for the card, and the
+                profiler bridge is ``torch.profiler.record_function``.
+                The batched sweep (``core.sim_batched.simulate_batch``)
+                opens a span a phase of a call; under a profiler that
+                records CPU activity the bridge puts them in its trace.
   metrics.py    :class:`MetricsRegistry` — counters, gauges and fixed-bucket
                 histograms, labeled series.
   export.py     :class:`MetricsExporter` — sim-time-windowed registry

@@ -2,7 +2,8 @@
 
 The port's copy of ``repro.obs.report`` (pure Python, as the reference's):
 the same names, records and JSON, so the two packages' outputs compare
-field by field.
+field by field; the span rows add the thread's CPU time, ``cpu_us``, which
+the port's span records carry.
 
 :func:`write_report` turns a run's observability payloads — the telemetry
 sink, the tracer's span records, the metrics registry, optionally the
@@ -43,9 +44,10 @@ def aggregate_spans(records: list[dict]) -> dict[str, dict]:
 
     A span's *path* is the '/'-joined name chain from its trace's root
     (``decide/posterior``), so identical code paths across traces land in
-    one row.  Each row carries call count, total time, and *self* time
-    (total minus direct children — the unattributed share lives in the
-    parent's self time).  Rows come back sorted by total time, descending.
+    one row.  Each row carries call count, total time, *self* time (total
+    minus direct children — the unattributed share lives in the parent's
+    self time) and the thread's total CPU time (``cpu_us``).  Rows come
+    back sorted by total time, descending.
     """
     by_key = {(s["trace"], s["span"]): s for s in records}
     paths: dict[tuple, str] = {}
@@ -66,10 +68,11 @@ def aggregate_spans(records: list[dict]) -> dict[str, dict]:
     agg: dict[str, dict] = {}
     for s in records:
         row = agg.setdefault(path_of(s), {"count": 0, "total_us": 0.0,
-                                          "self_us": 0.0})
+                                          "self_us": 0.0, "cpu_us": 0.0})
         row["count"] += 1
         row["total_us"] += s["dur_us"]
         row["self_us"] += s["dur_us"]
+        row["cpu_us"] += s["cpu_us"]
     for s in records:           # subtract children from their parent's self
         if s["parent"] is None:
             continue

@@ -27,9 +27,21 @@ the control plane it instruments (DESIGN.md §13):
 * **Near-zero cost when off.**  ``span()`` on a disabled tracer returns a
   shared no-op context manager: one branch + one ``with`` per site.
 
+* **Host CPU time beside wall time.**  Each record carries ``cpu_us``, the
+  thread's CPU time over the span (``time.thread_time_ns``), beside its
+  wall-clock ``dur_us``: a span whose wall time exceeds its CPU time had
+  its thread waiting (on the card, the OS, a lock or the scheduler) rather
+  than working.
+
 * **Profiler bridge.**  ``Tracer(profiler=True)`` additionally enters a
   ``torch.profiler.record_function`` per span, so host spans land in
-  ``torch.profiler`` traces beside the kernels they launch.
+  ``torch.profiler`` traces beside the kernels they launch, in a trace
+  that records CPU activity: the batched sweep's spans
+  (``core.sim_batched.simulate_batch``) land there as ranges of their
+  names.  A trace of CUDA activity alone keeps no range: there a caller
+  puts the records' ``t0`` and ``dur_us`` (``perf_counter``) on the
+  trace's clock itself, to name each idle gap of the card by the span the
+  host was in.
 
 Span records are plain dicts (``records()`` / ``to_json(path)``); the
 structural view for equality testing is ``signature()`` — (trace, span,
@@ -79,7 +91,7 @@ class _Span:
     """One open span; closes (and records itself) on ``__exit__``."""
 
     __slots__ = ("tracer", "name", "attrs", "trace_id", "span_id",
-                 "parent_id", "t0", "_annotation")
+                 "parent_id", "t0", "c0", "_annotation")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self.tracer = tracer
@@ -98,10 +110,13 @@ class _Span:
             self._annotation = tr._annotation(self.name)
             if self._annotation is not None:
                 self._annotation.__enter__()
+        # the CPU-time interval nests inside the wall-clock one
         self.t0 = time.perf_counter()
+        self.c0 = time.thread_time_ns()
         return self
 
     def __exit__(self, *exc):
+        c1 = time.thread_time_ns()
         t1 = time.perf_counter()
         if self._annotation is not None:
             self._annotation.__exit__(*exc)
@@ -118,6 +133,7 @@ class _Span:
             "name": self.name,
             "t0": self.t0,
             "dur_us": (t1 - self.t0) * 1e6,
+            "cpu_us": (c1 - self.c0) / 1e3,
             "attrs": self.attrs,
         })
         return False

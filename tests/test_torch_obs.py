@@ -3,7 +3,8 @@
 Metrics, export, health, forensics and report are the reference's pure
 Python, copied: driven by the same inputs, the two packages must give equal
 registry snapshots, Prometheus text, export records, alert records,
-forensics records and report files, byte for byte.  Wired into the engines,
+forensics records and report files, byte for byte (the port's span rows
+add the thread's CPU time, ``cpu_us``).  Wired into the engines,
 the planes must see the same run as the reference's: equal alerts, export
 windows (their sim-time fields) and forensics winners, the forensics values
 within FORENSICS_RTOL.  Left out of every comparison: the wall-clock fields
@@ -488,10 +489,24 @@ def test_write_report_byte_equal_on_fixed_payloads(tmp_path):
                      "summary.json", "timeline.csv", "trace.json"]
     assert files == sorted(p.name for p in dirs["ref"].iterdir())
     for f in files:
-        assert (dirs["port"] / f).read_bytes() == \
-            (dirs["ref"] / f).read_bytes(), f
-    assert TO.aggregate_spans(eng.tracer.records()) == \
-        JO.aggregate_spans(eng.tracer.records())
+        port = (dirs["port"] / f).read_bytes()
+        if f == "summary.json":
+            # the port's span rows add the thread's CPU time, cpu_us; without
+            # it the file is the reference's, byte for byte
+            payload = json.loads(port)
+            for row in payload["spans"].values():
+                assert row.pop("cpu_us") >= 0.0
+            port = json.dumps(payload, indent=2, sort_keys=True,
+                              allow_nan=False).encode()
+        assert port == (dirs["ref"] / f).read_bytes(), f
+    records = eng.tracer.records()
+    agg = TO.aggregate_spans(records)
+    cpu = {path: row.pop("cpu_us") for path, row in agg.items()}
+    assert agg == JO.aggregate_spans(records)
+    roots = [r for r in records if r["parent"] is None]
+    for name in {r["name"] for r in roots}:
+        assert cpu[name] == pytest.approx(
+            sum(r["cpu_us"] for r in roots if r["name"] == name))
     minimal = [O.write_report(tmp_path / f"min_{n}", "bare")
                for n, O in OBS.items()]
     assert sorted(p.name for p in minimal[0].iterdir()) == \
