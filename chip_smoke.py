@@ -2723,12 +2723,14 @@ def batched_phase(dev, counters):
     from repro_torch.models.spec import init_from_specs
 
     t_phase = time.perf_counter()
-    modes = []
+    modes, routes = [], []
     loop = sim_batched._step_loop
 
-    def watched_loop(c, s, T):
+    def watched_loop(c, s, T, *rest):
         modes.append(torch.cuda.get_sync_debug_mode() if s["P"].is_cuda else None)
-        return loop(c, s, T)
+        logs, route = loop(c, s, T, *rest)
+        routes.append((s["P"].is_cuda, T, route))
+        return logs, route
     sim_batched._step_loop = watched_loop
     out = {}
     try:
@@ -2876,6 +2878,11 @@ def batched_phase(dev, counters):
           and sum(mode is not None for mode in modes) >= 4,
           f"batched: the step loop ran under sync debug modes {modes}")
     out["step_loop_sync_debug_modes"] = sorted({m for m in modes if m is not None})
+    # on the card every call replays steps 1 to T - 1 from its CUDA graph
+    check(all(r == ({"graph_steps": T - 1, "eager_steps": 1} if cuda
+                    else {"graph_steps": 0, "eager_steps": T}) for cuda, T, r in routes),
+          f"batched: step routes {[r for _, _, r in routes]}")
+    out["step_loop_graphed_calls"] = sum(cuda for cuda, _, _ in routes)
 
     # (e) the quickstart's entry point on the card and on the CPU
     lines = {}

@@ -9,7 +9,8 @@ block-local GP, decides and launches, and the per-episode control flow is
 masks (``torch.where``).  The loop runs exactly ``T = n + Mmax`` steps (the
 static length of the reference's ``lax.scan``) and reads nothing back to
 the host until it ends: on the card the whole sweep is one stream of
-launches, and results reach the host once.  Each episode is a spec
+launches (steps 1 to T - 1 replayed from one CUDA graph), and results
+reach the host once.  Each episode is a spec
 (seed, policy, device count, device-speed vector, optional ``z_true``).
 
 Exactness (DESIGN.md §6): for the deterministic policies (``mdmt``,
@@ -326,11 +327,47 @@ def _no_host_sync(dev: torch.device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _step_loop(c: dict, s: dict, T: int) -> dict:
+def _capture(body, dev: torch.device) -> torch.cuda.CUDAGraph:
+    """``body`` captured once as a CUDA graph, on a side stream and in a
+    private memory pool that is freed with the graph.  Capture executes
+    nothing.  Not ``torch.cuda.graph``: its synchronize and cache emptying
+    would wait on the card at every call."""
+    graph = torch.cuda.CUDAGraph()
+    main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        # checks this thread's CUDA calls only: another thread's (a
+        # profiler's, a caller's) cannot invalidate the capture
+        graph.capture_begin(capture_error_mode="thread_local")
+        body()
+        graph.capture_end()
+    main.wait_stream(side)
+    return graph
+
+
+#: the per-step logs: one (B, T) tensor each, a step writes its column
+_LOGS = (("obs_model", torch.int64), ("obs_time", torch.float32),
+         ("inst", torch.float32), ("cum", torch.float32), ("launch", torch.bool),
+         ("model", torch.int64), ("hint", torch.int64), ("device", torch.int64),
+         ("start", torch.float32), ("end", torch.float32))
+
+
+def _step_loop(c: dict, s: dict, T: int, graphed: bool,
+               tracer: Tracer = NULL_TRACER) -> dict:
     """Runs the T steps on the tensors of ``c`` (constants, and the batch's
     policies and whether every speed is 1) and ``s`` (state, updated in
-    place); returns the per-step logs as (B, T) tensors.  No operation here
-    reads a value back to the host."""
+    place); returns the per-step logs as (B, T) tensors, and how many steps
+    were replayed from the graph and how many ran eagerly (``graph_steps``,
+    ``eager_steps``).  No operation here reads a value back to the host.
+
+    A step reads and writes tensors at fixed addresses only: the state in
+    place, its column of each log at a step count kept on the device, and
+    the ``random`` Gumbels at that count's column of a chunk buffer that is
+    refilled before every ``_GUMBEL_CHUNK``-th step.  So with ``graphed``
+    (the card) step 0 runs eagerly, the step is then captured once as a
+    CUDA graph (span ``capture``) and steps 1 to T - 1 replay it: the same
+    kernels on the same tensors, none dispatched from Python.  Otherwise
+    every step runs eagerly."""
     B = s["dev_end"].shape[0]
     N, m = c["mu0_b"].shape
     n = N * m
@@ -355,10 +392,12 @@ def _step_loop(c: dict, s: dict, T: int) -> dict:
     t_prev, cum, gsum = s["t_prev"], s["cum"], s["gsum"]
     rr_ptr, pend_ptr, counter, decisions = (
         s["rr_ptr"], s["pend_ptr"], s["counter"], s["decisions"])
-    logs = {k: [] for k in ("obs_model", "obs_time", "inst", "cum", "launch",
-                            "model", "hint", "device", "start", "end")}
+    k = torch.zeros(1, dtype=torch.int64, device=dev)     # the step count
+    logs = {key: torch.empty((B, T), dtype=dtype, device=dev) for key, dtype in _LOGS}
+    if has_random:
+        gumbels = torch.empty((B, _GUMBEL_CHUNK, N), dtype=torch.float32, device=dev)
 
-    for step in range(T):
+    def step():
         # -- 1. pop the next event: min (finish time, launch seq) ------------
         emin = dev_end.amin(1)
         active = torch.isfinite(emin)
@@ -373,8 +412,8 @@ def _step_loop(c: dict, s: dict, T: int) -> dict:
         z = z_true[ar, mi]
 
         # -- 2. regret integral up to t (integrand constant between obs) -----
-        cum = cum + torch.where(active, gsum * (t - t_prev), 0.0)
-        t_prev = t
+        cum.add_(torch.where(active, gsum * (t - t_prev), 0.0))
+        t_prev.copy_(t)
 
         # -- 3. fold the observation into the block-local GP -----------------
         Pb, dotb = P[ar, b], dot[ar, b]                 # (B, m, m), (B, m)
@@ -404,7 +443,7 @@ def _step_loop(c: dict, s: dict, T: int) -> dict:
         has_obs[ar, b] = has_b
         true_b = best_true[ar, b]
         best_true[ar, b] = torch.where(do_obs, torch.maximum(true_b, z), true_b)
-        gsum = _tree_sum(z_star - best_true)
+        gsum.copy_(_tree_sum(z_star - best_true))
         inst = gsum / num_tenants
         # the owner tenant's EI of block b (the only block that moved)
         ei[ar, b] = expected_improvement(
@@ -441,11 +480,7 @@ def _step_loop(c: dict, s: dict, T: int) -> dict:
             if has_random:
                 # categorical(sub, logits): the first argmax of the Gumbels
                 # of the tenants with work (tenant 0 when none has any)
-                if step % _GUMBEL_CHUNK == 0:
-                    span = slice(step, step + _GUMBEL_CHUNK)
-                    gumbels = gumbel(random_bits(c["sub"][0][:, span],
-                                                 c["sub"][1][:, span], N))
-                g = gumbels[:, step % _GUMBEL_CHUNK]
+                g = gumbels.index_select(1, k % _GUMBEL_CHUNK)[:, 0]
                 u_rand = torch.where(has_work, g, float("-inf")).argmax(1)
                 u_rand = torch.where(any_left, u_rand, 0)
                 u_sel = torch.where(is_rr, u_rr, u_rand) if has_rr else u_rand
@@ -470,22 +505,39 @@ def _step_loop(c: dict, s: dict, T: int) -> dict:
             launch, counter, torch.where(active, _IDLE_SEQ, dev_seq[ar, d]))
         selected[ar, model_next] = selected[ar, model_next] | launch
         if has_rr:
-            rr_ptr = torch.where(launch & ~use_pending & is_rr, (u_rr + 1) % N, rr_ptr)
-        pend_ptr = pend_ptr + (use_pending & launch)
-        counter = counter + launch
-        decisions = decisions + (active & ~use_pending)
+            rr_ptr.copy_(torch.where(launch & ~use_pending & is_rr, (u_rr + 1) % N, rr_ptr))
+        pend_ptr.add_(use_pending & launch)
+        counter.add_(launch)
+        decisions.add_(active & ~use_pending)
 
         for key, val in (("obs_model", torch.where(do_obs, model, -1)),
                          ("obs_time", t), ("inst", inst), ("cum", cum),
                          ("launch", launch), ("model", model_next),
                          ("hint", hint), ("device", d), ("start", t),
                          ("end", t_end)):
-            logs[key].append(val)
+            logs[key].index_copy_(1, k, val[:, None])
+        k.add_(1)
 
-    out = {k: torch.stack(v, 1) for k, v in logs.items()}
+    graph, route = None, {"graph_steps": 0, "eager_steps": 0}
+    for i in range(T):
+        if has_random and i % _GUMBEL_CHUNK == 0:
+            span = slice(i, i + _GUMBEL_CHUNK)
+            fresh = gumbel(random_bits(c["sub"][0][:, span], c["sub"][1][:, span], N))
+            gumbels[:, :fresh.shape[1]] = fresh
+        if graph is not None:
+            graph.replay()
+            route["graph_steps"] += 1
+            continue
+        step()
+        route["eager_steps"] += 1
+        if graphed:
+            with tracer.span("capture"):
+                graph = _capture(step, dev)
+
+    out = dict(logs)
     out["decisions"] = decisions
     out["end_time"] = t_prev
-    return out
+    return out, route
 
 
 def _trial_logs(steps: dict, n: int) -> dict:
@@ -535,11 +587,14 @@ def simulate_batch(
     B, ``models`` n, ``steps`` T, ``policies`` sorted): ``validate``,
     ``block_shape``, ``pack`` (the host arrays), ``sub_keys`` (the
     ``random`` key chains), ``upload`` (attr ``bytes_h2d``: the bytes sent
-    to the device), ``loop`` (attr ``steps``: the host's dispatch of the T
-    steps), ``drain`` (``tracer.sync`` on the logs: how far the device lags
-    the host), ``copy_back`` (attr ``bytes_d2h``), ``trial_logs`` and
-    ``assemble``.  With tracing on, ``wall_seconds`` is ``upload`` +
-    ``loop`` + ``drain`` + ``copy_back``.
+    to the device), ``loop`` (attrs ``steps``: the host's dispatch of the T
+    steps; ``graph_steps``: those replayed from a CUDA graph, T - 1 on the
+    card and 0 on the CPU; ``eager_steps``: those dispatched op by op; on
+    the card its one child ``capture`` covers the graph's capture and
+    instantiation), ``drain`` (``tracer.sync`` on the logs: how far the
+    device lags the host), ``copy_back`` (attr ``bytes_d2h``),
+    ``trial_logs`` and ``assemble``.  With tracing on, ``wall_seconds`` is
+    ``upload`` + ``loop`` + ``drain`` + ``copy_back``.
     """
     specs = tuple(specs)
     if not specs:
@@ -635,8 +690,10 @@ def simulate_batch(
                 cum=torch.zeros(B, dtype=torch.float32, device=dev),
             )
             s["gsum"] = _tree_sum(c["z_star"] - s["best_true"])
-        with tracer.span("loop", steps=T), _no_host_sync(dev):
-            steps = _step_loop(c, s, T)
+        with tracer.span("loop", steps=T) as loop, _no_host_sync(dev):
+            steps, route = _step_loop(c, s, T, dev.type == "cuda", tracer)
+            if tracer.enabled:
+                loop.attrs.update(route)      # the route the steps took
         with tracer.span("drain"):
             tracer.sync(list(steps.values()))
         with tracer.span("copy_back", bytes_d2h=sum(v.nbytes for v in steps.values())):

@@ -39,7 +39,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ControlPlane, simulate, synthetic_matern_problem  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ControlPlane, EpisodeSpec, simulate, simulate_batch, synthetic_matern_problem)
 from repro_torch.core.tenancy import _matern_block_chol  # noqa: E402
 from repro_torch.devplane import DevPlaneEngine, two_class_registry  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -48,6 +49,7 @@ from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import forward_logits_last, init_params  # noqa: E402
 from repro_torch.models.spec import tree_leaves, tree_map  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, StaticBatchEngine  # noqa: E402
 from repro_torch.stream import device_churn_trace  # noqa: E402
 
@@ -453,6 +455,38 @@ def test_episode_on_card_equals_cpu(cuda, policy):
         assert ei_score.launches > e0
     cpu = simulate(prob, policy, num_devices=3, seed=0, device="cpu")
     assert gpu.trials == cpu.trials
+
+
+def test_sweep_graph_on_card_equals_cpu(cuda):
+    """``simulate_batch`` on the card, where step 0 runs eagerly and steps 1
+    to T - 1 replay one CUDA graph, returns the CPU's eager result bit for
+    bit in every field, in two calls (a graph each); T = 43 ends inside the
+    second chunk of ``random`` Gumbels.  The ``loop`` span counts the
+    replayed steps and has one ``capture`` child."""
+    prob = synthetic_matern_problem(num_users=5, num_models_per_user=8, seed=5)
+    specs = [EpisodeSpec("mdmt", 3, 0, device_speeds=(1.0, 2.0, 0.5)),
+             EpisodeSpec("round_robin", 2, 1), EpisodeSpec("random", 3, 2),
+             EpisodeSpec("random", 1, 9), EpisodeSpec("mdmt", 1, 4)]
+    T = prob.num_models + 3
+    want = simulate_batch(prob, specs, device="cpu")
+    tracer = Tracer(enabled=True)
+    tracer.begin_trace(0)
+    runs = [simulate_batch(prob, specs, device=cuda, tracer=tracer),
+            simulate_batch(prob, specs, device=cuda)]
+    for got in runs:
+        for f in dataclasses.fields(want):
+            a, b = getattr(want, f.name), getattr(got, f.name)
+            if f.name == "wall_seconds":
+                continue
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True), f.name
+            else:
+                assert a is b or a == b, f.name
+    spans = {r["name"]: r for r in tracer.records()}
+    assert [r["name"] for r in tracer.records()].count("capture") == 1
+    loop = spans["loop"]
+    assert loop["attrs"] == {"steps": T, "graph_steps": T - 1, "eager_steps": 1}
+    assert spans["capture"]["parent"] == loop["span"]
 
 
 # --- the data plane ---------------------------------------------------------------

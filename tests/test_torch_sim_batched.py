@@ -154,6 +154,42 @@ def test_vmap_batch_matches_singleton_runs():
                 device="cpu"))
 
 
+def _seven_tenants(m):
+    return m.synthetic_matern_problem(num_users=7, num_models_per_user=8, seed=5)
+
+
+@pytest.mark.parametrize("Mmax", [8, 9, 7], ids=["T%32=0", "T%32=1", "T%32=31"])
+def test_step_logs_across_gumbel_chunks(Mmax):
+    """A batch of all three policies, heterogeneous speeds and the warm
+    start, over T = 56 + Mmax steps (the ``random`` Gumbels are made
+    ``_GUMBEL_CHUNK`` = 32 steps at a time, so T ends a chunk, starts one
+    or falls one short): every episode equals the reference's batch, the
+    deterministic ones the event engine, and each step's column of the
+    (B, T) logs holds the observation that step pops, in the event order
+    of the episode's own trials."""
+    speeds = tuple((1.0, 2.0, 0.5, 4.0)[j % 4] for j in range(Mmax))
+    rows = [("mdmt", Mmax, 0, {"device_speeds": speeds}),
+            ("round_robin", 3, 1, {"device_speeds": (1.0, 2.0, 0.5)}),
+            ("random", 2, 2, {}), ("random", Mmax, 7, {"device_speeds": speeds}),
+            ("mdmt", 1, 3, {})]
+    want, got = _pair(rows, problem=_seven_tenants)
+    n = got.problem.num_models
+    assert got.obs_model.shape == (len(rows), n + Mmax)
+    assert_batches_match(want, got)
+    for i, (policy, M, seed, kw) in enumerate(rows):
+        if policy != "random":
+            assert_episode_matches(got, i, T.simulate(
+                _seven_tenants(T), policy, M, seed=seed, device="cpu",
+                device_speeds=np.asarray(kw.get("device_speeds", (1.0,) * M))))
+        # the steps pop the trials by (end time, launch order)
+        obs = got.obs_model[i] >= 0
+        order = np.lexsort((np.arange(n), got.trial_end[i]))
+        np.testing.assert_array_equal(got.obs_model[i][obs], got.trial_model[i][order])
+        np.testing.assert_array_equal(got.obs_time[i][obs], got.trial_end[i][order])
+        assert (np.diff(got.obs_time[i]) >= 0).all()
+        assert got.end_time[i] == got.obs_time[i][-1] == got.trial_end[i].max()
+
+
 @pytest.mark.parametrize("policy", ["mdmt", "round_robin", "random"])
 def test_every_model_observed_exactly_once(policy):
     batch = T.simulate_batch(_problem(T), [T.EpisodeSpec(policy, 2, 0)], device="cpu")

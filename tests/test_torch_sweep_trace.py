@@ -87,7 +87,10 @@ def test_span_tree_counts_and_wall_seconds(problem):
     # cumulative regret, launched, model, hint, device, start, end; then
     # decisions (int64) and end time (float32) a row
     d2h = B * T * (8 + 4 + 4 + 4 + 1 + 8 + 8 + 8 + 4 + 4) + B * (8 + 4)
-    attrs = {"upload": (("bytes_h2d", h2d),), "loop": (("steps", T),),
+    # on the CPU every step runs eagerly: no step is replayed from a CUDA
+    # graph, and the loop has no ``capture`` child
+    attrs = {"upload": (("bytes_h2d", h2d),),
+             "loop": (("eager_steps", T), ("graph_steps", 0), ("steps", T)),
              "copy_back": (("bytes_d2h", d2h),)}
     root = ("episodes", B), ("models", n), ("policies", ("mdmt", "random", "round_robin")), \
         ("steps", T)
