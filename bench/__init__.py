@@ -1,4 +1,5 @@
-"""The benchmark of the port's batched GP-EI sweep engine (``bench/run.py``)."""
+"""The benchmark of the port: its batched GP-EI sweep engine and its
+training step (``bench/run.py``)."""
 
 import importlib.util
 from pathlib import Path

@@ -1,14 +1,24 @@
-"""The control of a sweep cell's comparison: the reference in bfloat16 put
-in the program's place, judged by the comparison that decides ``correct``.
+"""The control of a cell's comparison, and its faults, dispatched by the
+cell's system.
 
-    python3 bench/control.py --workload <cell> --seeds <n>[,<n>...]
+    python3 bench/control.py --workload <cell> --seeds <n>[,<n>...] [--variants <v>,...]
 
-draws a run's inputs exactly as ``bench/run.py`` does for each seed (the
-ground truths on the card when there is one), takes the episodes a run
-checks, and prints one JSON line a seed with the numbers the control reads
-(``check.NAMES``).  Its readings are the upper ends the limits in
-``checks/<cell>.json`` were set below; the benchmark's own runs do not run
-it.  It imports nothing of the program.
+A sweep cell: the reference in bfloat16 put in the program's place, judged
+by the comparison that decides ``correct``.  It draws a run's inputs
+exactly as ``bench/run.py`` does for each seed (the ground truths on the
+card when there is one), takes the episodes a run checks, and prints one
+JSON line a seed with the numbers the control reads (``check.NAMES``); it
+imports nothing of the program.
+
+A training cell: the program's own lower-precision path, parameters and
+AdamW moments in bfloat16 (``control``), beside the sound program
+(``program``) and the faults of ``train_faults`` named in ``--variants``;
+each runs the checked steps of a run on the seed's inputs, and one line a
+seed gives each variant's numbers (``train_check.NAMES``) against one run
+of the reference.
+
+Their readings are the ends the limits in ``checks/<cell>.json`` were set
+between; the benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -41,6 +51,39 @@ def readings(root: Path, cell: dict, seed: int, device, precision: str = "bfloat
     return check.worst([check.compare(as_rows(c), r) for c, r in zip(ctrl, refs)])
 
 
+def train_readings(root: Path, cell: dict, seed: int, device, variants) -> dict:
+    """Each variant's numbers against one reference run of the seed."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+
+    from bench import train_check, train_faults, train_reference
+    from bench.systems import train
+    from repro_torch.train import make_train_step
+
+    unknown = set(variants) - {"program", "control", *train_faults.FAULTS}
+    if unknown:
+        raise SystemExit(f"unknown variants {sorted(unknown)}")
+    steps = cell["traffic"]["checked_steps"]
+    progs = {}
+    for name in variants:
+        c, make = cell, train_faults.FAULTS.get(name, make_train_step)
+        if name == "control":
+            c = dict(cell, config=dict(cell["config"], param_dtype="bfloat16",
+                                       moment_dtype="bfloat16"))
+        job = train.Job(c, seed, device, make)
+        progs[name] = train.checked_steps(job, steps)
+        del job
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    ref = train_reference.run(cell["config"], cell["traffic"], seed, device, steps)
+    return {name: {**train_check.compare(p, ref), "worst": train_check.worst_leaves(p, ref)}
+            for name, p in progs.items()}
+
+
 def as_rows(ep) -> dict:
     """A reference episode in the layout ``check.episode_rows`` gives the
     program's (float32 regret curves, trial slots padded as the program
@@ -66,12 +109,18 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True)
+    p.add_argument("--variants", default="control",
+                   help="a training cell's: control, program and train_faults.FAULTS' names")
     args = p.parse_args(argv)
     cell = run.load_cell(ROOT, args.workload)
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     for seed in (int(s) for s in args.seeds.split(",")):
-        print(json.dumps({"workload": args.workload, "seed": seed, "device": device.type,
-                          "control": readings(ROOT, cell, seed, device)}), flush=True)
+        line = {"workload": args.workload, "seed": seed, "device": device.type}
+        if cell["config"]["system"] == "train":
+            line["readings"] = train_readings(ROOT, cell, seed, device, args.variants.split(","))
+        else:
+            line["control"] = readings(ROOT, cell, seed, device)
+        print(json.dumps(line), flush=True)
     return 0
 
 

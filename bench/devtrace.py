@@ -14,8 +14,10 @@ records, whole windows of them, host and device records alike, so a
 trace is not checked against itself alone: calls of one run launch the
 same work, and a call's trace is read only when its device records number
 exactly those of another call traced in a session of its own, and every
-launch in it has its kernel record.  Up to ``ATTEMPTS`` calls are traced;
-if no two agree, the run fails rather than read a partial share.
+launch in it has its kernel record.  Up to ``ATTEMPTS`` calls are traced
+(a system may ask for more); if no two agree, the run fails rather than
+read a partial share.  A traced window may idle for ``pad_s`` before its
+first marker and after its last.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class _OpCounter(TorchDispatchMode):
         super().__init__()
         self.device_type = device_type
         self.count = 0
+        self.backward = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -51,15 +54,23 @@ class _OpCounter(TorchDispatchMode):
             first = next((a for a in args if isinstance(a, torch.Tensor)), None)
         if first is not None and first.device.type == self.device_type:
             self.count += 1
+            self.backward += "backward" in func.__name__
         return out
+
+
+def count_ops_with_backward(fn, device_type: str = "cuda"):
+    """``count_ops``, and of those operations the ones named as a backward
+    formula (``silu_backward``, ...): a training step's backward pass is
+    counted only if autograd's operations reach the mode."""
+    with _OpCounter(device_type) as counter:
+        out = fn()
+    return out, counter.count, counter.backward
 
 
 def count_ops(fn, device_type: str = "cuda"):
     """``(fn(), number of aten operations whose first output (or, with no
     tensor output, first tensor argument) is on device_type)``."""
-    with _OpCounter(device_type) as counter:
-        out = fn()
-    return out, counter.count
+    return count_ops_with_backward(fn, device_type)[:2]
 
 
 def _merge(intervals: np.ndarray) -> np.ndarray:
@@ -79,6 +90,7 @@ def summarize(events, window_s: float, span: str) -> dict:
     ``span``, to the traced run's device readings."""
     dev_iv, kernel_s, launches, kernels = [], 0.0, 0, 0
     by_name: dict[str, float] = defaultdict(float)
+    kernel_by_name: dict[str, float] = defaultdict(float)
     host_iv, host_names, window = [], [], None
     for e in events:
         if e.device_type() == torch.autograd.DeviceType.CUDA:
@@ -90,6 +102,7 @@ def summarize(events, window_s: float, span: str) -> dict:
             if not name.startswith(("Memcpy", "Memset")):
                 kernel_s += dur / 1e9
                 kernels += 1
+                kernel_by_name[name[:NAME_CHARS]] += dur / 1e9
             continue
         name = e.name()
         if name == span:
@@ -115,17 +128,21 @@ def summarize(events, window_s: float, span: str) -> dict:
                      float(g1 - g0) / 1e9])
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     return {"window_s": window_s, "busy_s": busy_s, "kernel_s": kernel_s,
-            "records": len(dev_iv), "kernels": kernels, "launches": launches,
+            "kernel_s_by_name": dict(kernel_by_name), "records": len(dev_iv), "kernels": kernels, "launches": launches,
             "breakdown": {"device_ops": [[k, v] for k, v in ops], "idle_gaps": idle}}
 
 
-def profile_call(fn, span: str = "sweep_call"):
+def profile_call(fn, span: str = "sweep_call", pad_s: float = 0.0):
     """``(fn(), summary)`` of one call traced by ``torch.profiler`` (the
     device and the host's CUDA calls); ``window_s`` is the host clock
-    around the call, which ends when the card is idle."""
+    around the call, which ends when the card is idle.  ``pad_s`` idles
+    inside the profiler's window before the first marker and after the
+    last, so that records whose mapped times stray a little off the host's
+    clock stay inside it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         with record_function(span):
             # a launch before and after the call marks its extent among the
             # host's CUDA calls, where no host range is recorded
@@ -136,16 +153,19 @@ def profile_call(fn, span: str = "sweep_call"):
             window_s = time.perf_counter() - t0
             mark.zero_()
             torch.cuda.synchronize()
+        time.sleep(pad_s)
     return out, summarize(prof.profiler.kineto_results.events(), window_s, span)
 
 
-def profile_agreed(fn, attempts: int = ATTEMPTS, span: str = "sweep_call"):
+def profile_agreed(fn, attempts: int = ATTEMPTS, span: str = "sweep_call",
+                   pad_s: float = 0.0):
     """``profile_call(fn)`` repeated until a call's trace keeps a kernel
     record for every launch and as many device records as an earlier
     call's trace: ``(fn(), summary, device records of every traced call)``."""
     seen = []
+    padding = {"pad_s": pad_s} if pad_s else {}
     for _ in range(attempts):
-        out, summary = profile_call(fn, span)
+        out, summary = profile_call(fn, span, **padding)
         records = summary["records"]
         complete = summary["launches"] > 0 and summary["kernels"] >= summary["launches"]
         if complete and records in seen:

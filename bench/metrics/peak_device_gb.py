@@ -1,5 +1,5 @@
 """The allocator's peak of device memory over the window (reset at its
-start), in GB: what bounds the sweep one card holds."""
+start), in GB: what bounds the sweep or the training job one card holds."""
 
 
 def read(ctx):

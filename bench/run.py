@@ -1,12 +1,13 @@
-"""Benchmark of the port's batched GP-EI sweep engine.
+"""Benchmark of the port: its batched GP-EI sweep engine and its training step.
 
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout, on a machine with the card(s) the cell asks
 for.  Everything is found by name: the cell in ``BENCHMARK.json``, its
 configuration in the file named there (``bench/configs/``), which names
-its system (``bench/systems/<system>.py``) and generator
-(``bench/generators/``), its traffic mix in ``bench/traffic/<traffic>.json``,
+its system (``bench/systems/<system>.py``: ``sweep`` or ``train``) and, for
+a sweep, its generator (``bench/generators/``), its traffic mix in
+``bench/traffic/<traffic>.json``,
 its comparison limits in ``bench/checks/<cell>.json`` and each metric's
 reader in ``bench/metrics/<metric>.py``.  ``--trace 0`` reports the cell's
 end-to-end metrics, ``--trace 1`` its per-layer ones.  The last line of
@@ -71,8 +72,9 @@ def parse(argv):
 
 def main(argv=None, *, root: Path = ROOT, device: str = "cuda", simulate=None,
          out=None, err=None) -> int:
-    """One run.  ``device="cpu"`` and ``simulate`` (the program's entry, by
-    default ``simulate_batch``) are for the harness's own tests."""
+    """One run.  ``device="cpu"`` and ``simulate`` (the program's entry that
+    the cell's system drives; by default the system's own) are for the
+    harness's own tests and controls."""
     out, err = out or sys.stdout, err or sys.stderr
     args = parse(argv)
     cell = load_cell(root, args.workload)
@@ -89,8 +91,6 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda", simulate=None,
         print(f"needs {cell['chips']} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=err)
         return 2
-    if simulate is None:
-        from repro_torch.core.sim_batched import simulate_batch as simulate
     dev = torch.device(device)
     system = load_module(root / "bench" / "systems" / f"{cell['config']['system']}.py",
                          f"bench_system_{cell['config']['system']}")
@@ -115,10 +115,12 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda", simulate=None,
         info["window_s"] = ctx["profile"]["window_s"]
         line["breakdown"] = ctx["profile"]["breakdown"]
     checks = {k: {"value": v, "limit": cell["checks"][k]} for k, v in ctx["checks"].items()}
-    checks["episodes_checked"] = {"value": ctx["checked"], "limit": cell["traffic"]["check_episodes"]}
-    line["correct"] = (ctx["failed"] == 0 and ctx["checked"] == cell["traffic"]["check_episodes"]
+    # the count of what was compared, under the system's own name
+    counted = ctx["checked"]
+    checks[counted["name"]] = {"value": counted["value"], "limit": counted["limit"]}
+    line["correct"] = (ctx["failed"] == 0 and counted["value"] == counted["limit"]
                        and all(c["value"] <= c["limit"] for k, c in checks.items()
-                               if k != "episodes_checked"))
+                               if k != counted["name"]))
     line["checks"] = checks
 
     found = forbidden_modules()

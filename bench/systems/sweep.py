@@ -64,7 +64,8 @@ def reference_jobs(cfg: dict, layout: list, truth, picked: list[int], steps: int
 
 def run(root: Path, cell: dict, seed: int, seconds: float, trace: bool,
         device: torch.device, simulate, t_start: float) -> dict:
-    """One run of a sweep cell: the readings the metric readers take."""
+    """One run of a sweep cell: the readings the metric readers take.
+    ``simulate`` is the program's entry (by default ``simulate_batch``)."""
     from repro_torch.core.sim_batched import EpisodeSpec
     from repro_torch.core.tenancy import Problem
 
@@ -73,6 +74,8 @@ def run(root: Path, cell: dict, seed: int, seconds: float, trace: bool,
         print(f"phase {name} {now - since:.3f} s", file=sys.stderr, flush=True)
         return now
 
+    if simulate is None:
+        from repro_torch.core.sim_batched import simulate_batch as simulate
     cfg, traffic = cell["config"], cell["traffic"]
     gen = generator(root, cfg)
     mark = phase("imports", t_start)
@@ -137,5 +140,7 @@ def run(root: Path, cell: dict, seed: int, seconds: float, trace: bool,
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     return {"setup_s": setup_s, "window": window, "steps": T, "batch": B, "device_kind": kind,
             "ops": ops, "profile": prof, "bytes": moved,
-            "checks": check.worst(readings), "checked": len(readings),
+            "checks": check.worst(readings),
+            "checked": {"name": "episodes_checked", "value": len(readings),
+                        "limit": traffic["check_episodes"]},
             "attempted": window["episodes"], "failed": failed}
